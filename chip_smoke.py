@@ -21,11 +21,31 @@ JAX or of the JAX package. Phases, each fatal on failure:
    checks the poses (20, finite), at least 2 keyframes after bootstrap, the
    median tracked count over the steps (> 50), PnP on every accepted frame,
    at least 2 kernel launches per LK level pass, and the aligned keyframe
-   ATE.
+   ATE;
+5. chunked replay with preload: ``run_vo(chunk_size=64, preload_device=True,
+   checkpoint_every=65, out_dir=...)`` on ``cuda`` over the bench's
+   129-frame world (bootstrap + two chunks of 64; same parameters as
+   phase 4); it checks 129 finite poses, no preload miss, hint engagement,
+   the keyframe count over frames 49-64, the aligned keyframe ATE, 129
+   ``metrics.jsonl`` rows and at least 2 kernel launches per LK level pass;
+6. resume: ``run_vo(resume_from=<phase 5's checkpoint>, chunk_size=64)``
+   over the same frames gives exactly frames 65-128, finite, the first
+   within ``RESUME_TOL`` of phase 5's pose for frame 65;
+7. the CLI on real imagery: a child process runs
+   ``python -m stereo_vo_tpu_torch.cli run`` on ``tests/fixtures/real``
+   (5 KITTI-layout 376x1241 pairs with ground truth) on ``cuda``, with cv2,
+   PIL and matplotlib made unimportable in it, so PNGs decode through
+   ``native/`` and track images are drawn with numpy and saved as ``.npy``;
+   it checks the exit code, the JSON summary (5 frames, ATE rmse under
+   2.5 m), and every output file; a second child checks that ``--plot``
+   without matplotlib fails with a clear error.
 
-The line before the last is the kernels' JSON record; the last line is
-``{"ok": true, "device": {...}}``. Without a CUDA device, or without the
-package beside it, the script exits non-zero before printing any result.
+Launch counts are zeroed just before, and read just after, each of phases
+4-6 (phase 7's launches happen in a child process and are not counted). The
+line before the last is the kernels' JSON record, with launches summed over
+phases 4-6; the last line is ``{"ok": true, "device": {...}}``. Without a
+CUDA device, or without the package beside it, the script exits non-zero
+before printing any result.
 """
 
 from __future__ import annotations
@@ -35,6 +55,7 @@ import os
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 # aligned keyframe ATE bound (m): twice what the port gives for the same 20
@@ -42,6 +63,35 @@ import time
 ATE_BOUND_M = 0.1568
 N_FRAMES = 20
 IMAGE_SHAPE = (376, 1241)
+# phases 5-6: the bench's world (bench.py: 1 + 2 chunks of 64), its chunk
+# size, and a checkpoint that lands on the first chunk boundary (frame 65).
+# Bounds are wide around what the port gave on the same world on an H100 in
+# streaming mode: keyframes 5 of 16 over frames 49-64, the hinted short
+# pyramid on 112 of 128 steps (0.875), aligned keyframe ATE 0.057 m.
+N_REPLAY = 129
+CHUNK = 64
+CKPT_EVERY = 65
+KF_WINDOW = (49, 65)            # frames 49..64
+KF_WINDOW_RANGE = (3, 7)
+HINT_MIN = 0.5
+REPLAY_ATE_BOUND_M = 0.2
+# resumed vs straight pose at frame 65: not bitwise on the card, since CUDA
+# scatter-adds are atomic and their summation order varies
+RESUME_TOL = 1e-3
+# phase 7: the JAX package's bound for the same fixtures
+# (tests/test_real_fixtures.py::test_full_pipeline_on_real_fixtures)
+REAL_ATE_BOUND_M = 2.5
+REAL_ROOT = os.path.join("tests", "fixtures")
+REAL_SEQUENCE = "real"
+REAL_CONFIG = "kitti00"
+REAL_FRAMES = 5
+HIDE_HOST_LIBS = (
+    "import runpy, sys\n"
+    "for m in ('cv2', 'PIL', 'matplotlib'):\n"
+    "    sys.modules[m] = None\n"
+    "sys.argv[0] = 'stereo_vo_tpu_torch.cli'\n"
+    "runpy.run_module('stereo_vo_tpu_torch.cli', run_name='__main__')\n"
+)
 
 # (label, padded image H, W, region rows, cols, features): LK inner levels
 # (56x56, pad 22) and the top level (88x88, pad 38) at the compacted (160)
@@ -99,6 +149,13 @@ def _inputs(torch, gen, hp, wp, ry, rx, n, device):
     return stack.to(device).contiguous(), origins.to(device).contiguous()
 
 
+def _lk_passes(cfg, steps) -> int:
+    """LK level passes over stepped frames: the hinted short pyramid runs
+    ``lk_hint_levels`` levels, a full pass ``lk_max_level + 1``."""
+    return sum(cfg.frontend.lk_hint_levels if s["hinted"] else cfg.frontend.lk_max_level + 1
+               for s in steps)
+
+
 def _time_ms(torch, fn, samples=20, inner=10):
     """Median over ``samples`` of the mean time of ``inner`` back-to-back
     calls, by CUDA events."""
@@ -116,6 +173,141 @@ def _time_ms(torch, fn, samples=20, inner=10):
         end.synchronize()
         times.append(start.elapsed_time(end) / inner)
     return statistics.median(times)
+
+
+def _check_replay(cfg, run, gt_poses, out_dir, wall_s, launches) -> None:
+    """Phase 5's checks on the chunked replay."""
+    import numpy as np
+
+    from stereo_vo_tpu_torch.eval.ate import absolute_trajectory_error
+
+    stats = run.frame_stats
+    kf = np.array([s["is_keyframe"] for s in stats])
+    first_kf = int(np.argmax(kf))
+    steps = stats[first_kf + 1:]
+    hint = sum(s["hinted"] for s in steps) / max(len(steps), 1)
+    kf_window = int(kf[KF_WINDOW[0]:KF_WINDOW[1]].sum())
+    ate_kf = absolute_trajectory_error(run.poses[kf], gt_poses[kf], align=True)
+    lk_passes = _lk_passes(cfg, steps)
+    with open(os.path.join(out_dir, "metrics.jsonl")) as f:
+        rows = [json.loads(line) for line in f]
+    _log(f"chunked replay: {len(run.poses)} frames in {wall_s:.2f} s (incl. preload upload), "
+         f"{run.frames_per_sec:.3f} frames/s after the first chunk, "
+         f"chunk s {[round(c, 3) for c in run.chunk_seconds]}, "
+         f"streamed step s {[round(t, 3) for t in run.frame_seconds]}, "
+         f"preload misses {run.preload_misses}")
+    _log(f"chunked replay: keyframes {int(kf.sum())}, {kf_window} of 16 over frames "
+         f"{KF_WINDOW[0]}-{KF_WINDOW[1] - 1}, hint engagement {hint:.3f}, aligned keyframe "
+         f"ATE rmse {ate_kf['rmse']:.4f} m, all-frames ATE rmse {run.ate['rmse']:.4f} m, "
+         f"metrics rows {len(rows)}")
+    _log(f"chunked replay: extract_regions launches {launches} over {lk_passes} LK level "
+         f"passes and {int(kf.sum())} keyframes")
+    _check(len(run.poses) == N_REPLAY, f"{len(run.poses)} poses")
+    _check(bool(np.all(np.isfinite(run.poses))), "non-finite pose")
+    _check(len(run.chunk_seconds) == (N_REPLAY - 1) // CHUNK, f"chunks {run.chunk_seconds}")
+    _check(run.preload_misses == 0, f"{run.preload_misses} preload misses")
+    _check(hint > HINT_MIN, f"hint engagement {hint}")
+    _check(KF_WINDOW_RANGE[0] <= kf_window <= KF_WINDOW_RANGE[1],
+           f"{kf_window} keyframes over frames {KF_WINDOW}")
+    _check(ate_kf["rmse"] < REPLAY_ATE_BOUND_M, f"keyframe ATE {ate_kf}")
+    _check(len(rows) == N_REPLAY and [r["frame"] for r in rows] == list(range(N_REPLAY)),
+           f"{len(rows)} metrics rows")
+    _check(launches >= 2 * lk_passes > 0, f"{launches} launches for {lk_passes} LK passes")
+    _check(os.path.exists(os.path.join(out_dir, "checkpoint.npz")), "no checkpoint written")
+
+
+def _check_cli(out_dir: str, dev) -> None:
+    """Phase 7: the CLI in a child process on the real fixtures, with cv2,
+    PIL and matplotlib unimportable in it."""
+    import numpy as np
+
+    repo = os.path.dirname(os.path.abspath(__file__))
+    args = ["run", "--config", REAL_CONFIG, "--kitti-root", os.path.join(repo, REAL_ROOT),
+            "--sequence", REAL_SEQUENCE, "--device", str(dev), "--out", out_dir,
+            "--save-world-points", "--save-track-images", "2", "--quiet"]
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-c", HIDE_HOST_LIBS, *args], cwd=repo,
+                          capture_output=True, text=True, timeout=600)
+    wall_s = time.perf_counter() - t0
+    _check(proc.returncode == 0, f"cli run exit {proc.returncode}: {proc.stderr[-3000:]}")
+    summary = json.loads(proc.stdout.strip().splitlines()[-1])
+    files = sorted(os.listdir(out_dir))
+    points = sorted(os.listdir(os.path.join(out_dir, "world_points")))
+    with open(os.path.join(out_dir, "metrics.jsonl")) as f:
+        n_rows = sum(1 for _ in f)
+    tracks = [f"tracks_{i:06d}.png.npy" for i in range(0, REAL_FRAMES, 2)]
+    _log(f"cli on real imagery: {wall_s:.2f} s (child process, incl. start-up), "
+         f"summary {json.dumps(summary)}")
+    _log(f"cli on real imagery: files {files}, world_points {points}")
+    _check(summary["frames"] == REAL_FRAMES, f"cli summary {summary}")
+    _check(summary["ate"] is not None and summary["ate"]["rmse"] < REAL_ATE_BOUND_M,
+           f"real-imagery ATE {summary['ate']}")
+    _check(n_rows == REAL_FRAMES, f"{n_rows} metrics rows")
+    for name in ("trajectory_kitti.txt", "trajectory_tum.txt", *tracks):
+        _check(name in files, f"cli output {name} missing from {files}")
+    _check(bool(points), "no world-points dump")
+    img = np.load(os.path.join(out_dir, tracks[0]))
+    _check(img.shape == IMAGE_SHAPE + (3,) and img.dtype == np.uint8, f"track image {img.shape}")
+
+    proc = subprocess.run([sys.executable, "-c", HIDE_HOST_LIBS, *args, "--plot"], cwd=repo,
+                          capture_output=True, text=True, timeout=300)
+    _log(f"cli --plot without matplotlib: exit {proc.returncode}, "
+         f"stderr {proc.stderr.strip()[-200:]!r}")
+    _check(proc.returncode != 0 and "matplotlib" in proc.stderr, "--plot without matplotlib")
+
+
+def _offline_phases(cfg, dev) -> dict:
+    """Phases 5-7; returns the kernel launches of phases 5 and 6."""
+    import numpy as np
+
+    from stereo_vo_tpu_torch.data.synthetic import SyntheticStereoSequence
+    from stereo_vo_tpu_torch.engine.driver import run_vo
+    from stereo_vo_tpu_torch.ops.regions import extract_regions
+
+    phase_launches = {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
+        # ---- 5. chunked replay with device preload
+        world = SyntheticStereoSequence(
+            cam=cfg.camera, n_frames=N_REPLAY, shape=IMAGE_SHAPE, n_points=4000, seed=0,
+            speed=0.8, yaw_rate=0.003,
+        )
+        t0 = time.perf_counter()
+        frames = list(world)
+        _log(f"replay world: {len(frames)} frames rendered in {time.perf_counter() - t0:.2f} s")
+        out5 = os.path.join(tmp, "replay")
+        extract_regions.launches = 0
+        t0 = time.perf_counter()
+        run5 = run_vo(iter(frames), cfg, chunk_size=CHUNK, preload_device=True, out_dir=out5,
+                      checkpoint_every=CKPT_EVERY, device=dev)
+        wall_s = time.perf_counter() - t0
+        phase_launches["chunked_replay"] = extract_regions.launches
+        _check_replay(cfg, run5, world.gt_poses, out5, wall_s, phase_launches["chunked_replay"])
+
+        # ---- 6. resume from phase 5's checkpoint
+        ckpt = os.path.join(out5, "checkpoint.npz")
+        extract_regions.launches = 0
+        t0 = time.perf_counter()
+        run6 = run_vo(iter(frames), cfg, chunk_size=CHUNK, preload_device=True,
+                      resume_from=ckpt, device=dev)
+        wall_s = time.perf_counter() - t0
+        phase_launches["resume"] = extract_regions.launches
+        idx = [s["frame"] for s in run6.frame_stats]
+        first_err = float(np.abs(run6.poses[0] - run5.poses[CKPT_EVERY]).max())
+        all_err = float(np.abs(run6.poses - run5.poses[CKPT_EVERY:]).max())
+        kf_same = sum(a["is_keyframe"] == b["is_keyframe"]
+                      for a, b in zip(run6.frame_stats, run5.frame_stats[CKPT_EVERY:]))
+        _log(f"resume: {len(run6.poses)} frames ({idx[0]}-{idx[-1]}) in {wall_s:.2f} s, "
+             f"chunk s {[round(c, 3) for c in run6.chunk_seconds]}, "
+             f"max |pose - straight| first {first_err:.3g} all {all_err:.3g}, "
+             f"keyframe flags equal on {kf_same} of {len(run6.frame_stats)}, "
+             f"launches {phase_launches['resume']}")
+        _check(idx == list(range(CKPT_EVERY, N_REPLAY)), f"resumed frames {idx[:3]}..{idx[-3:]}")
+        _check(bool(np.all(np.isfinite(run6.poses))), "non-finite resumed pose")
+        _check(first_err < RESUME_TOL, f"first resumed pose differs by {first_err}")
+
+        # ---- 7. the CLI on real imagery, without cv2, PIL and matplotlib
+        _check_cli(os.path.join(tmp, "cli"), dev)
+    return phase_launches
 
 
 def main() -> int:
@@ -192,8 +384,7 @@ def main() -> int:
     kf = np.array([s["is_keyframe"] for s in stats])
     first_kf = int(np.argmax(kf))
     steps = stats[first_kf + 1:]
-    lk_passes = sum(cfg.frontend.lk_hint_levels if s["hinted"] else cfg.frontend.lk_max_level + 1
-                    for s in steps)
+    lk_passes = _lk_passes(cfg, steps)
     ate_kf = absolute_trajectory_error(run.poses[kf], world.gt_poses[kf], align=True)
     step_ms = [1e3 * t for t in run.frame_seconds[first_kf + 1:]]
     _log(f"main path: {len(run.poses)} frames in {wall_s:.2f} s (incl. rendering), "
@@ -212,6 +403,12 @@ def main() -> int:
     _check(all(s["pnp_ok"] for s in stats), "PnP failed on an accepted frame")
     _check(launches >= 2 * lk_passes > 0, f"{launches} launches for {lk_passes} LK passes")
     _check(ate_kf["rmse"] < ATE_BOUND_M, f"keyframe ATE {ate_kf}")
+    phase_launches = {"main_path": launches}
+
+    phase_launches.update(_offline_phases(cfg, dev))
+    _log("launches per phase: " + json.dumps(phase_launches)
+         + " (phase 7 runs in a child process: not counted)")
+    launches = sum(phase_launches.values())
 
     k_ms, p_ms = timings[HEADLINE]
     print(json.dumps({"kernels": [{

@@ -11,10 +11,15 @@ This package imports ``torch`` and numpy, never ``jax`` or ``stereo_vo_tpu``.
                 StereoBM
 - ``frontend``  detect -> track -> PnP-RANSAC -> triangulate
 - ``backend``   residuals + analytic Jacobians, window state, Schur-LM BA
-- ``engine``    ``VOEngine`` bootstrap/step, the streaming ``run_vo`` driver,
-                state conversion from the JAX package's leaves
-- ``data``      ``StereoFrame`` and the synthetic stereo world (host, numpy)
-- ``eval``      ATE and trajectory writers (host, numpy)
+- ``engine``    ``VOEngine`` bootstrap/step/replay_chunk, the ``run_vo``
+                driver (streaming and chunked replay with device preload),
+                checkpoint/resume, JSONL metrics, state conversion from the
+                JAX package's leaves
+- ``data``      ``StereoFrame``, ``LiveStereoStream``, the synthetic stereo
+                world, the KITTI loader and the native PNG decoder (host)
+- ``eval``      ATE, trajectory I/O, track drawing and plots (host)
+- ``utils``     stage timers and ``torch.profiler`` traces
+- ``cli``, ``smoke``  the ``svo-torch`` command and the device smoke gate
 """
 
 __version__ = "0.1.0"

@@ -11,6 +11,10 @@ taken branch runs.
 
 The PnP hypotheses are drawn from a generator seeded with the frame index;
 ``step(..., pnp_indices=...)`` injects them instead.
+
+``VOEngine.replay_chunk`` is the offline-replay path: the state-independent
+preprocessing of a ``[K, H, W]`` chunk runs as one batched pass, then the
+chunk is a loop of ``step`` calls (the reference's ``lax.scan``).
 """
 
 from __future__ import annotations
@@ -323,19 +327,47 @@ class VOEngine:
             ba_stats.initial_cost, ba_stats.final_cost, ba_stats.iterations, n_newlm)
 
     # ------------------------------------------------------------------
+    def _preprocess(self, lefts_f: torch.Tensor):
+        """The state-independent per-frame work on ``[..., H, W]`` float32
+        images: ``(pyramid levels, quality peak count, Shi-Tomasi response)``."""
+        fc = self.config.frontend
+        resp = min_eig_response(lefts_f, fc.detect_block_size)
+        n_peaks = count_quality_peaks(
+            lefts_f, fc.quality_level, fc.detect_block_size, resp=resp)
+        return build_pyramid(lefts_f, fc.lk_max_level), n_peaks, resp
+
+    def replay_chunk(self, state: VOState, lefts, rights
+                     ) -> Tuple[VOState, torch.Tensor, torch.Tensor]:
+        """Run ``K`` frames (``[K, H, W]`` host or device images) and return
+        ``(state, poses [K, 7], summaries [K, 19])``, stacked on the device.
+
+        As in the reference, the pyramid, the Shi-Tomasi response and the
+        peak count do not depend on the carried state, so they run once over
+        the whole chunk; each frame's step then takes its slice."""
+        lefts_f = self._image(lefts)
+        rights_f = self._image(rights)
+        pyrs, n_peaks, resps = self._preprocess(lefts_f)
+        poses, summaries = [], []
+        for k in range(lefts_f.shape[0]):
+            precomp = (tuple(level[k] for level in pyrs), n_peaks[k], resps[k])
+            state, out = self.step(state, lefts_f[k], rights_f[k], precomp=precomp)
+            poses.append(out.pose_cw)
+            summaries.append(out.summary)
+        return state, torch.stack(poses), torch.stack(summaries)
+
     def step(self, state: VOState, left, right,
-             pnp_indices: Optional[torch.Tensor] = None) -> Tuple[VOState, StepOutput]:
+             pnp_indices: Optional[torch.Tensor] = None,
+             precomp=None) -> Tuple[VOState, StepOutput]:
         """One frame. ``pnp_indices [n_hyp - 1, k]`` replaces the seeded PnP
-        hypothesis draw when given."""
+        hypothesis draw when given; ``precomp = (pyramid, n_peaks, resp)``
+        supplies the frame's preprocessing when ``replay_chunk`` batched it."""
         cfg = self.config
         left_f = self._image(left)
         right_f = self._image(right)
 
         # cheap every-frame bail: quality peak count
-        resp = min_eig_response(left_f, cfg.frontend.detect_block_size)
-        n_peaks = count_quality_peaks(
-            left_f, cfg.frontend.quality_level, cfg.frontend.detect_block_size, resp=resp)
-        pyr = tuple(build_pyramid(left_f, cfg.frontend.lk_max_level))
+        pyr, n_peaks, resp = precomp if precomp is not None else self._preprocess(left_f)
+        pyr = tuple(pyr)
         n_det = torch.clamp(n_peaks, max=cfg.frontend.max_detect)
         has_det = bool(n_peaks >= cfg.frontend.min_detected)
 

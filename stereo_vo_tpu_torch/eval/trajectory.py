@@ -8,8 +8,7 @@ kitti-odometry / evo-style tooling can consume.
 - TUM format: ``stamp tx ty tz qx qy qz qw`` per line (note x-y-z-w quat order).
 
 Copied from ``stereo_vo_tpu/eval/trajectory.py`` with the pose algebra done by
-this package's geometry; the KITTI ground-truth loader waits for the KITTI
-data layer.
+this package's geometry.
 """
 
 from __future__ import annotations
@@ -37,6 +36,13 @@ def write_kitti_trajectory(path: str, poses_tcw: np.ndarray) -> None:
     t_wc = inv[..., 4:7].numpy()
     rows = np.concatenate([r_wc, t_wc[..., None]], axis=-1).reshape(-1, 12)
     np.savetxt(path, rows, fmt="%.9e")
+
+
+def load_kitti_trajectory(path: str) -> np.ndarray:
+    """KITTI file -> ``[N, 7]`` T_cw pose vectors."""
+    from stereo_vo_tpu_torch.data.kitti import parse_kitti_poses
+
+    return parse_kitti_poses(path)
 
 
 def write_tum_trajectory(

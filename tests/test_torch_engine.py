@@ -165,14 +165,6 @@ def test_end_to_end_ate_matches_reference(world, jax_run):
     assert run.ate is not None and run.frames_per_sec > 0
 
 
-def test_run_vo_refuses_unported_modes(world):
-    cfg = port_config(_config())
-    for kw in (dict(chunk_size=4), dict(resume_from="x.npz"), dict(checkpoint_every=5),
-               dict(preload_device=True)):
-        with pytest.raises(NotImplementedError):
-            run_vo(iter(()), cfg, **kw)
-
-
 def test_port_sources_import_no_jax():
     """No module of the port imports JAX or the JAX package, on any path."""
     banned = re.compile(r"^\s*(?:import|from)\s+(?:jax|jaxlib|stereo_vo_tpu)(?!\w)", re.M)
@@ -188,7 +180,8 @@ def test_port_sources_import_no_jax():
 
 
 def test_port_runs_without_jax(tmp_path):
-    """The port's main path in a fresh interpreter never imports JAX."""
+    """The port's main path, a chunked and checkpointed replay and a resume,
+    and the host entry points, in a fresh interpreter that never imports JAX."""
     code = (
         "import sys\n"
         "from stereo_vo_tpu_torch.core.camera import CameraInfo\n"
@@ -196,6 +189,8 @@ def test_port_runs_without_jax(tmp_path):
         "from stereo_vo_tpu_torch.data.synthetic import SyntheticStereoSequence\n"
         "from stereo_vo_tpu_torch.engine.driver import run_vo\n"
         "import stereo_vo_tpu_torch.ops, stereo_vo_tpu_torch.eval, stereo_vo_tpu_torch.engine.convert\n"
+        "import stereo_vo_tpu_torch.cli, stereo_vo_tpu_torch.smoke, stereo_vo_tpu_torch.data.kitti\n"
+        "import stereo_vo_tpu_torch.eval.viz, stereo_vo_tpu_torch.utils.profiling\n"
         "cam = CameraInfo(focal=200.0, cx=80.0, cy=60.0, baseline=0.4)\n"
         "cfg = PipelineConfig(camera=cam, frontend=FrontendConfig(min_distance=8.0,\n"
         "    parallax_thresh=6.0), backend=BackendConfig(feature_capacity=256,\n"
@@ -203,6 +198,15 @@ def test_port_runs_without_jax(tmp_path):
         "w = SyntheticStereoSequence(cam=cam, n_frames=4, shape=(120, 160), n_points=300, seed=2)\n"
         f"run = run_vo(w, cfg, out_dir={str(tmp_path)!r})\n"
         "assert len(run.poses) == 4\n"
+        "frames = list(SyntheticStereoSequence(cam=cam, n_frames=7, shape=(120, 160),\n"
+        "    n_points=300, seed=2))\n"
+        f"ckpt_dir = {str(tmp_path / 'chunked')!r}\n"
+        "run = run_vo(iter(frames), cfg, chunk_size=3, preload_device=True, checkpoint_every=4,\n"
+        "    out_dir=ckpt_dir)\n"
+        "assert len(run.poses) == 7 and len(run.chunk_seconds) == 2 and run.preload_misses == 0\n"
+        "tail = run_vo(iter(frames), cfg, chunk_size=3, resume_from=ckpt_dir + '/checkpoint.npz')\n"
+        "assert [s['frame'] for s in tail.frame_stats] == [4, 5, 6]\n"
+        "assert (tail.poses == run.poses[4:]).all()\n"
         "assert 'jax' not in sys.modules, 'jax was imported'\n"
         "assert not any(m.startswith('stereo_vo_tpu.') or m == 'stereo_vo_tpu' for m in sys.modules)\n"
         "print('ok')\n"

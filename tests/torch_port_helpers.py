@@ -84,6 +84,42 @@ def port_camera(jax_cam):
     return CameraInfo(**dataclasses.asdict(jax_cam))
 
 
+SMALL_CONFIG_YAML = """\
+# 240x320 test camera with the small-world front/back-end settings
+focal_length: 400.0
+cx: 160.0
+cy: 120.0
+baseline: 0.5
+frame_rate: 11
+frontend:
+  min_distance: 12.0
+  parallax_thresh: 10.0
+backend:
+  feature_capacity: 384
+  landmark_capacity: 1024
+  max_lm_iters: 8
+"""
+
+
+def write_kitti_sequence(root, name, frames):
+    """Write ``frames`` (``StereoFrame``s with ground truth) as a KITTI-layout
+    sequence ``root/name/image_{0,1}/NNNNNN.png`` + ``root/name/name.txt``."""
+    import os
+
+    import cv2
+
+    from stereo_vo_tpu_torch.eval.trajectory import write_kitti_trajectory
+
+    seq = os.path.join(str(root), name)
+    for side in ("image_0", "image_1"):
+        os.makedirs(os.path.join(seq, side), exist_ok=True)
+    for i, f in enumerate(frames):
+        cv2.imwrite(os.path.join(seq, "image_0", f"{i:06d}.png"), f.left)
+        cv2.imwrite(os.path.join(seq, "image_1", f"{i:06d}.png"), f.right)
+    write_kitti_trajectory(os.path.join(seq, name + ".txt"), np.stack([f.gt_pose for f in frames]))
+    return seq
+
+
 def jax_pnp_indices(valid, seed: int, n_hyp: int, k: int) -> np.ndarray:
     """The minimal samples ``stereo_vo_tpu/frontend/pnp.py`` draws for one
     frame (``[n_hyp - 1, k]``), rebuilt with the same ``jax.random`` calls."""
