@@ -38,14 +38,36 @@ JAX or of the JAX package. Phases, each fatal on failure:
    ``native/`` and track images are drawn with numpy and saved as ``.npy``;
    it checks the exit code, the JSON summary (5 frames, ATE rmse under
    2.5 m), and every output file; a second child checks that ``--plot``
-   without matplotlib fails with a clear error.
+   without matplotlib fails with a clear error;
+8. single-device options on ``cuda`` at 376x1241 (``kitti00``, default
+   capacities): (a) the dense StereoBM on pair 0 of ``tests/fixtures/real``
+   and on frame 0 of phase 4's world, sampled at the detected corners, must
+   equal the sparse ``stereo_bm_at`` there (validity identical, values
+   within ``BM_TOL``); (b) forward-only tracking
+   (``track_step(flow_back=False)``) over phase 4's 19 consecutive pairs,
+   each from a fresh ``tracker_init`` on frame t's detections: exactly 2
+   kernel launches per pyramid level per pair, a median tracked count
+   over 50, kept counts and ms beside the fwd/bwd path's on the same pairs;
+   (c) maxpool detection gives 0.3-1.0 x the greedy count, its corners
+   pairwise at least ``min_distance`` apart; (d) ``run_vo`` over phase 4's
+   world with a YAML that sets ``backend: reduced_solve_f64: true``, loaded
+   by ``load_config(path)``: aligned keyframe ATE under phase 4's bound, the
+   max pose difference from phase 4 and ``reduced_camera_condition`` of the
+   last window;
+9. the landmark-sharded BA: (a) a world of one NCCL rank on ``cuda:0``
+   (file store in a temporary directory): ``sharded_bundle_adjust`` equals
+   ``bundle_adjust`` on a 5 x 2048 window; (b) ``dryrun_multichip(4,
+   "cuda")``: four gloo ranks on ``cuda:0`` with tensors on the card (NCCL
+   refuses two ranks on one card) run the dp x lm batch and the 5 x 2048 and
+   32 x 16384 solves, sharded == single, with LM iterations/s per shard
+   count.
 
 Launch counts are zeroed just before, and read just after, each of phases
-4-6 (phase 7's launches happen in a child process and are not counted). The
-line before the last is the kernels' JSON record, with launches summed over
-phases 4-6; the last line is ``{"ok": true, "device": {...}}``. Without a
-CUDA device, or without the package beside it, the script exits non-zero
-before printing any result.
+4-6 and 8b (phase 7's launches happen in a child process and are not
+counted). The line before the last is the kernels' JSON record, with
+launches summed over phases 4-6 and 8b; the last line is ``{"ok": true,
+"device": {...}}``. Without a CUDA device, or without the package beside it,
+the script exits non-zero before printing any result.
 """
 
 from __future__ import annotations
@@ -112,6 +134,12 @@ SHAPES = [
     ("img_384x1256_r88", 384, 1256, 88, 88, 64),
     ("img_96x320_r48", 96, 320, 48, 48, 64),
 ]
+# phase 8: dense vs sparse BM at the corners (both sum exact integers)
+BM_TOL = 1e-5
+MAXPOOL_RANGE = (0.3, 1.0)
+# phase 9: sharded vs single device, the JAX dry run's bounds
+SHARD_POSE_TOL = 2e-4
+SHARD_LM_TOL = 2e-3
 TIMED = ("lk_l0_56_n160", "lk_top_88_n160", "bm_left_32x32_n320", "bm_right_32x80_n320")
 HEADLINE = "lk_l0_56_n160"
 
@@ -310,6 +338,185 @@ def _offline_phases(cfg, dev) -> dict:
     return phase_launches
 
 
+def _dense_bm_check(torch, cfg, label, left, right, dev) -> None:
+    """Phase 8a on one stereo pair (uint8 numpy images)."""
+    from stereo_vo_tpu_torch.frontend.detect import detect_features
+    from stereo_vo_tpu_torch.ops.stereo_bm import disparity_at, stereo_bm_at, stereo_bm_disparity
+
+    fc = cfg.frontend
+    kw = dict(num_disparities=fc.bm_num_disparities, block_size=fc.bm_block_size)
+    lt = torch.from_numpy(left).to(dev).to(torch.float32)
+    rt = torch.from_numpy(right).to(dev).to(torch.float32)
+    dense = stereo_bm_disparity(lt, rt, **kw)
+    xy, valid = detect_features(lt, fc)
+    sparse = stereo_bm_at(lt, rt, xy, valid, **kw)
+    at = torch.where(valid, disparity_at(dense, xy), -1.0)
+    same_valid = bool(torch.equal(at > 0, sparse > 0))
+    err = float((at - sparse).abs().max())
+    ms = _time_ms(torch, lambda: stereo_bm_disparity(lt, rt, **kw), samples=5, inner=3)
+    share = float((dense > 0).float().mean())
+    _log(f"dense BM {label}: {tuple(dense.shape)}, valid share {share:.4f}, "
+         f"{int(valid.sum())} corners ({int((sparse > 0).sum())} with a disparity), "
+         f"max |dense - sparse| {err:.3g}, {ms:.3f} ms per call (sparse {int(valid.sum())} "
+         f"corners: {_time_ms(torch, lambda: stereo_bm_at(lt, rt, xy, valid, **kw), 5, 3):.3f} ms)")
+    _check(dense.shape == lt.shape and same_valid and err <= BM_TOL,
+           f"dense BM {label} equals sparse BM at the corners")
+    _check(share > 0.05, f"dense BM {label} valid share {share}")
+
+
+def _forward_tracking(torch, cfg, world, dev) -> int:
+    """Phase 8b; returns the kernel launches of the forward-only steps."""
+    from stereo_vo_tpu_torch.frontend.detect import detect_features
+    from stereo_vo_tpu_torch.frontend.track import track_step, tracker_init
+    from stereo_vo_tpu_torch.ops.pyramid import build_pyramid
+    from stereo_vo_tpu_torch.ops.regions import extract_regions
+
+    fc = cfg.frontend
+    f_cap = cfg.backend.feature_capacity
+    pyrs = [build_pyramid(torch.from_numpy(world.render(i)[0]).to(dev), fc.lk_max_level)
+            for i in range(N_FRAMES)]
+    states = []
+    for t in range(N_FRAMES - 1):
+        xy, valid = detect_features(pyrs[t][0], fc)
+        n = xy.shape[0]
+        xy_f = torch.zeros((f_cap, 2), dtype=torch.float32, device=dev)
+        valid_f = torch.zeros(f_cap, dtype=torch.bool, device=dev)
+        xy_f[:n], valid_f[:n] = xy, valid
+        ids = torch.arange(f_cap, dtype=torch.int32, device=dev)
+        states.append(tracker_init(tuple(pyrs[t]), xy_f, ids, valid_f))
+
+    def run(flow_back):
+        kept, ms = [], []
+        for t, st in enumerate(states):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            _, stats = track_step(st, tuple(pyrs[t + 1]), fc, flow_back=flow_back)
+            kept.append(int(stats.num_tracked))
+            ms.append(1e3 * (time.perf_counter() - t0))
+        return kept, ms
+
+    extract_regions.launches = 0
+    kept_fwd, ms_fwd = run(False)
+    launches = extract_regions.launches
+    kept_fb, ms_fb = run(True)
+    levels = fc.lk_max_level + 1
+    _log(f"forward-only tracking: kept {kept_fwd}, median {statistics.median(kept_fwd)}, "
+         f"step ms p50 {statistics.median(ms_fwd):.1f} max {max(ms_fwd):.1f}")
+    _log(f"fwd/bwd tracking, same pairs: kept {kept_fb}, median {statistics.median(kept_fb)}, "
+         f"step ms p50 {statistics.median(ms_fb):.1f} max {max(ms_fb):.1f}")
+    _log(f"forward-only tracking: extract_regions launches {launches} "
+         f"(2 x {levels} levels x {len(states)} pairs = {2 * levels * len(states)})")
+    _check(launches == 2 * levels * len(states), f"{launches} forward-only launches")
+    _check(statistics.median(kept_fwd) > 50, f"forward-only kept {kept_fwd}")
+    return launches
+
+
+def _maxpool_check(torch, cfg, world, dev) -> None:
+    """Phase 8c on frame 0 of phase 4's world."""
+    from stereo_vo_tpu_torch.ops.shi_tomasi import detect_corners
+
+    fc = cfg.frontend
+    img = torch.from_numpy(world.render(0)[0]).to(dev).to(torch.float32)
+    kw = dict(max_corners=fc.max_detect, quality_level=fc.quality_level,
+              min_distance=fc.min_distance, block_size=fc.detect_block_size)
+    xy, _, valid = detect_corners(img, nms="maxpool", **kw)
+    greedy = int(detect_corners(img, **kw)[2].sum())
+    pts = xy[valid]
+    d = torch.cdist(pts, pts) + torch.eye(len(pts), device=dev) * 1e9
+    n, dmin = int(valid.sum()), float(d.min())
+    _log(f"maxpool detection: {n} corners against {greedy} greedy ({n / greedy:.3f}), "
+         f"closest pair {dmin:.1f} px (min_distance {fc.min_distance})")
+    _check(MAXPOOL_RANGE[0] * greedy <= n <= MAXPOOL_RANGE[1] * greedy, "maxpool count")
+    _check(dmin >= fc.min_distance, f"maxpool corners {dmin} px apart")
+
+
+def _f64_island(torch, world, run4, dev, tmp) -> None:
+    """Phase 8d: ``run_vo`` with the f64 island set in a YAML."""
+    import numpy as np
+
+    from stereo_vo_tpu_torch.backend.schur import reduced_camera_condition, window_to_landmark_major
+    from stereo_vo_tpu_torch.core.config import CONFIG_DIR, load_config
+    from stereo_vo_tpu_torch.engine.driver import run_vo
+    from stereo_vo_tpu_torch.eval.ate import absolute_trajectory_error
+
+    with open(os.path.join(CONFIG_DIR, "kitti00.yaml")) as f:
+        text = f.read()
+    path = os.path.join(tmp, "kitti00_f64.yaml")
+    with open(path, "w") as f:
+        f.write(text + "\nbackend:\n  reduced_solve_f64: true\n")
+    cfg = load_config(path)
+    _check(cfg.backend.reduced_solve_f64, "the YAML sets reduced_solve_f64")
+    run = run_vo(world, cfg, device=dev)
+    kf = np.array([s["is_keyframe"] for s in run.frame_stats])
+    ate = absolute_trajectory_error(run.poses[kf], world.gt_poses[kf], align=True)
+    first_kf = int(np.argmax(kf))
+    step_ms = [1e3 * t for t in run.frame_seconds[first_kf + 1:]]
+    diff = float(np.abs(run.poses - run4.poses).max())
+    window = run.state.window
+    cond = float(reduced_camera_condition(window_to_landmark_major(window), cfg.camera,
+                                          cfg.backend))
+    _log(f"f64 island: {len(run.poses)} frames, keyframes {int(kf.sum())}, aligned keyframe "
+         f"ATE rmse {ate['rmse']:.4f} m (bound {ATE_BOUND_M} m), step ms p50 "
+         f"{statistics.median(step_ms):.1f}, max |pose - phase 4| {diff:.3g}, condition "
+         f"number of the last window {cond:.4g}")
+    _check(len(run.poses) == N_FRAMES and bool(np.all(np.isfinite(run.poses))), "f64 poses")
+    _check(ate["rmse"] < ATE_BOUND_M, f"f64 keyframe ATE {ate}")
+    _check(np.isfinite(cond) and cond > 1.0, f"condition number {cond}")
+
+
+def _sharded_phases(torch, tmp) -> None:
+    """Phase 9: one NCCL rank in this process, then four gloo ranks."""
+    import numpy as np
+    import torch.distributed as dist
+
+    from stereo_vo_tpu_torch.backend import schur
+    from stereo_vo_tpu_torch.backend.window import WindowState
+    from stereo_vo_tpu_torch.core.camera import CameraInfo
+    from stereo_vo_tpu_torch.core.config import BackendConfig
+    from stereo_vo_tpu_torch.parallel import make_mesh, sharded_bundle_adjust
+    from stereo_vo_tpu_torch.parallel.dryrun import dryrun_multichip, make_lm_problem
+
+    # ---- 9a. one NCCL rank: a 5 x 2048 window, every landmark seen by every pose
+    dev = torch.device("cuda", 0)
+    cam = CameraInfo(focal=718.856, cx=607.19, cy=185.22, baseline=0.537)
+    w, lcap = 5, 2048
+    cfg = BackendConfig(window_size=w, landmark_capacity=lcap, feature_capacity=lcap,
+                        max_lm_iters=10)
+    p = make_lm_problem(w, lcap, cam)
+    window = WindowState(
+        poses=p.poses, pose_valid=p.pose_valid, obs_uv=p.obs_uv.transpose(1, 0, 2).copy(),
+        obs_lm=np.tile(np.arange(lcap, dtype=np.int32), (w, 1)),
+        obs_valid=p.obs_valid.T.copy(), lm_pos=p.lm_pos,
+        lm_refcount=np.full(lcap, w, np.int32), lm_valid=p.lm_valid, lm_prior=p.lm_prior,
+        lm_prior_w=p.lm_prior_w, num_kf=np.int32(w))
+    window = WindowState(*[None if x is None else torch.as_tensor(x).to(dev) for x in window])
+    single, stats = schur.bundle_adjust(window, cam, cfg)
+    dist.init_process_group("nccl", init_method="file://" + os.path.join(tmp, "nccl_store"),
+                            world_size=1, rank=0)
+    try:
+        t0 = time.perf_counter()
+        sharded, c0, c1 = sharded_bundle_adjust(window, cam, cfg, make_mesh((1,), ("lm",), "cuda"))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        dist.destroy_process_group()
+    pose_err = float((sharded.poses - single.poses).abs().max())
+    lm_err = float((sharded.lm_pos - single.lm_pos).abs().max())
+    _log(f"sharded BA, 1 NCCL rank, {w}x{lcap}: cost {float(c0):.4f} -> {float(c1):.4f} "
+         f"(single {float(stats.initial_cost):.4f} -> {float(stats.final_cost):.4f}), max "
+         f"|sharded - single| poses {pose_err:.3g} landmarks {lm_err:.3g}, {wall:.3f} s")
+    _check(pose_err <= SHARD_POSE_TOL and lm_err <= SHARD_LM_TOL, "NCCL sharded == single")
+    _check(float(c1) < float(c0), "NCCL sharded solve lowers the cost")
+
+    # ---- 9b. four gloo ranks on cuda:0
+    t0 = time.perf_counter()
+    summary = dryrun_multichip(4, "cuda", timeout=600, store_dir=tmp)
+    _log(f"dryrun_multichip(4, 'cuda'): {time.perf_counter() - t0:.1f} s, "
+         + json.dumps(summary))
+    for tag, row in summary["shapes"].items():
+        _check(sorted(row["shards"]) == [1, 2, 4], f"{tag} shard counts {row['shards']}")
+
+
 def main() -> int:
     import torch
 
@@ -406,6 +613,21 @@ def main() -> int:
     phase_launches = {"main_path": launches}
 
     phase_launches.update(_offline_phases(cfg, dev))
+
+    # ---- 8. single-device options
+    from stereo_vo_tpu_torch.data.kitti import KittiSequence
+
+    real = KittiSequence(os.path.join(os.path.dirname(os.path.abspath(__file__)), REAL_ROOT),
+                         REAL_SEQUENCE)[0]
+    _dense_bm_check(torch, cfg, "real pair 0", real.left, real.right, dev)
+    _dense_bm_check(torch, cfg, "synthetic frame 0", *world.render(0), dev)
+    phase_launches["forward_only_tracking"] = _forward_tracking(torch, cfg, world, dev)
+    _maxpool_check(torch, cfg, world, dev)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
+        _f64_island(torch, world, run, dev, tmp)
+        # ---- 9. the landmark-sharded BA
+        _sharded_phases(torch, tmp)
+
     _log("launches per phase: " + json.dumps(phase_launches)
          + " (phase 7 runs in a child process: not counted)")
     launches = sum(phase_launches.values())
@@ -415,7 +637,7 @@ def main() -> int:
         "name": "extract_regions",
         "route": "cuda",
         "source": "stereo_vo_tpu_torch/csrc/extract_regions.cu",
-        "replaces": "stereo_vo_tpu/ops/pallas_extract.py:168",
+        "replaces": "stereo_vo_tpu/ops/pallas_extract.py:107 and :168",
         "launches": launches,
         "max_abs_err": max_err,
         "ms": k_ms,

@@ -2,7 +2,7 @@ from stereo_vo_tpu_torch.backend.residuals import (
     reprojection_jacobians,
     reprojection_residual,
 )
-from stereo_vo_tpu_torch.backend.schur import BASolveStats, bundle_adjust
+from stereo_vo_tpu_torch.backend.schur import BASolveStats, bundle_adjust, reduced_camera_condition
 from stereo_vo_tpu_torch.backend.window import WindowState
 
 __all__ = [
@@ -11,4 +11,5 @@ __all__ = [
     "WindowState",
     "bundle_adjust",
     "BASolveStats",
+    "reduced_camera_condition",
 ]

@@ -6,7 +6,11 @@
 - Residuals carry Huber IRLS weights; each landmark carries a stereo prior.
 - Landmarks are eliminated in closed form (3x3 adjugate inverses); the
   reduced camera system ``[W*6, W*6]`` is solved by LU with
-  ``cfg.reduced_solve_refine`` iterative-refinement passes.
+  ``cfg.reduced_solve_refine`` iterative-refinement passes, or, with
+  ``cfg.reduced_solve_f64``, promoted to float64 and solved once (the f64
+  island). The reference honours that flag only when ``jax_enable_x64`` is
+  on and otherwise silently takes the f32 path; torch has float64 on every
+  device, so the port honours it whenever it is set.
 - Nielsen gain-ratio damping, the oldest pose held as gauge; exits on the
   relative tolerance, a flat rejected step, or saturated damping; the damping
   λ is warm-started across solves from ``WindowState.ba_lam``.
@@ -15,6 +19,13 @@
 The LM loop runs in Python with one host sync per iteration (the accept test);
 it executes iterations in pairs like the reference's unrolled loop, so the
 iteration count matches it exactly.
+
+Landmark sharding (``parallel/sharded_ba.py``): given a process group, each
+rank holds a contiguous block of landmarks and ``lm_loop`` all-reduces (sum)
+at the reference's ``psum`` points: the cost, the pose blocks ``u_blocks``
+and ``g_p`` of each build, the ``[6W+1, 6W+1]`` Schur block of each damped
+reduction, and the landmark half of the predicted decrease. Every rank then
+branches on the same reduced numbers. Without a group nothing changes.
 """
 
 from __future__ import annotations
@@ -22,6 +33,7 @@ from __future__ import annotations
 from typing import NamedTuple, Tuple
 
 import torch
+import torch.distributed as dist
 
 from stereo_vo_tpu_torch.core.camera import CameraInfo
 from stereo_vo_tpu_torch.core.config import BackendConfig
@@ -127,14 +139,23 @@ def _obs_mask(poses, lm_pos, prob, min_depth):
     return pose_b, pts, mask
 
 
-def _lm_major_cost(poses, lm_pos, prob: LandmarkMajorProblem, cam, min_depth, huber_delta):
+def _all_reduce(t: torch.Tensor, group) -> torch.Tensor:
+    """Sum ``t`` over the ranks of ``group`` (the reference's ``psum``)."""
+    t = t.contiguous()
+    dist.all_reduce(t, op=dist.ReduceOp.SUM, group=group)
+    return t
+
+
+def _lm_major_cost(poses, lm_pos, prob: LandmarkMajorProblem, cam, min_depth, huber_delta,
+                   group=None):
     pose_b, pts, mask = _obs_mask(poses, lm_pos, prob, min_depth)
     r = reprojection_residual(pose_b, pts, prob.obs_uv, cam)
     r = torch.where(mask[..., None], r, 0.0)
     cost = torch.sum(_huber_rho(r, huber_delta))
     dp = lm_pos - prob.lm_prior
     pw = torch.where(prob.lm_valid, prob.lm_prior_w, 0.0)
-    return cost + 0.5 * torch.sum(pw[:, None] * dp * dp)
+    cost = cost + 0.5 * torch.sum(pw[:, None] * dp * dp)
+    return cost if group is None else _all_reduce(cost, group)
 
 
 class BASystem(NamedTuple):
@@ -149,7 +170,7 @@ class BASystem(NamedTuple):
     free: torch.Tensor       # [W]
 
 
-def _build_system(poses, lm_pos, prob: LandmarkMajorProblem, cam, cfg) -> BASystem:
+def _build_system(poses, lm_pos, prob: LandmarkMajorProblem, cam, cfg, group=None) -> BASystem:
     """Residuals and Jacobians at the iterate, accumulated into the λ-free
     blocks through one per-observation ``[10, 10]`` Gram of ``[jp6 | jl | r]``."""
     l, w = prob.obs_valid.shape
@@ -175,6 +196,8 @@ def _build_system(poses, lm_pos, prob: LandmarkMajorProblem, cam, cfg) -> BASyst
     wl = gram[..., :6, 6:9]
     u_blocks = torch.sum(gram[..., :6, :6], dim=0)
     g_p = -torch.sum(gram[..., :6, 9], dim=0)
+    if group is not None:
+        u_blocks, g_p = _all_reduce(u_blocks, group), _all_reduce(g_p, group)
 
     pw = torch.where(prob.lm_valid, prob.lm_prior_w, 0.0)
     v = v + pw[:, None, None] * torch.eye(3, dtype=dtype, device=dev)
@@ -191,7 +214,7 @@ def _damp(m: torch.Tensor, lam: torch.Tensor) -> torch.Tensor:
     return m + torch.eye(m.shape[-1], dtype=m.dtype, device=m.device) * dd[..., None, :]
 
 
-def _damp_reduce(sys: BASystem, lam: torch.Tensor):
+def _damp_reduce(sys: BASystem, lam: torch.Tensor, group=None):
     """λ-dependent half: damp, Schur-eliminate landmarks, gauge-fix.
 
     Returns ``(s [W,6,W,6], rhs [W,6], v_inv, dp_diag, dl_diag)``."""
@@ -206,6 +229,8 @@ def _damp_reduce(sys: BASystem, lam: torch.Tensor):
     wlg = torch.cat([sys.wl.reshape(l, n6, 3), sys.g_l[:, None, :]], dim=1)  # [L, 31, 3]
     a = torch.sum(wlg[:, :, :, None] * v_inv[:, None, :, :], dim=2)         # [L, 31, 3]
     msum = torch.einsum("lic,ljc->ij", a, wlg)                              # [31, 31]
+    if group is not None:
+        msum = _all_reduce(msum, group)
 
     s = -msum[:n6, :n6].reshape(w, 6, w, 6)
     rhs = sys.g_p - msum[:n6, n6].reshape(w, 6)
@@ -222,22 +247,41 @@ def _damp_reduce(sys: BASystem, lam: torch.Tensor):
     return s, rhs, v_inv, dp_diag, dl_diag
 
 
-def _solve_from_system(sys: BASystem, poses, lm_pos, lam, cfg):
+def reduced_camera_condition(prob: LandmarkMajorProblem, cam, cfg, lam: float = 0.0
+                             ) -> torch.Tensor:
+    """2-norm condition number of the damped, gauge-fixed reduced camera
+    system ``[6W, 6W]`` that the solver sees at ``prob``'s iterate: an f32
+    solve loses about ``log10(cond)`` digits, so a large value asks for
+    ``reduced_solve_refine`` or ``reduced_solve_f64``."""
+    dtype = prob.poses.dtype
+    sys = _build_system(prob.poses, prob.lm_pos, prob, cam, cfg)
+    s = _damp_reduce(sys, torch.tensor(lam, dtype=dtype, device=prob.poses.device))[0]
+    n = prob.poses.shape[0] * 6
+    sv = torch.linalg.svdvals(s.reshape(n, n))
+    return sv[0] / torch.clamp(sv[-1], min=torch.finfo(dtype).tiny)
+
+
+def _solve_from_system(sys: BASystem, poses, lm_pos, lam, cfg, group=None):
     """Damped solve + back-substitution; returns ``(poses', lm_pos', pred)``
     with ``pred`` the decrease predicted by the damped quadratic model."""
     dtype, dev = poses.dtype, poses.device
     w = poses.shape[0]
-    s, rhs, v_inv, dp_diag, dl_diag = _damp_reduce(sys, lam)
+    s, rhs, v_inv, dp_diag, dl_diag = _damp_reduce(sys, lam, group)
     fm = sys.free.to(dtype)
 
     n = w * 6
     s_mat = s.reshape(n, n) + 1e-10 * torch.eye(n, dtype=dtype, device=dev)
     rhs_v = rhs.reshape(n, 1)
-    lu, piv = torch.linalg.lu_factor(s_mat)
-    delta = torch.linalg.lu_solve(lu, piv, rhs_v)
-    for _ in range(int(cfg.reduced_solve_refine)):
-        resid = rhs_v - s_mat @ delta
-        delta = delta + torch.linalg.lu_solve(lu, piv, resid)
+    if cfg.reduced_solve_f64:
+        # the f64 island: Ceres' double-precision dense Schur solve, for the
+        # tiny reduced system only
+        delta = torch.linalg.solve(s_mat.to(torch.float64), rhs_v.to(torch.float64)).to(dtype)
+    else:
+        lu, piv = torch.linalg.lu_factor(s_mat)
+        delta = torch.linalg.lu_solve(lu, piv, rhs_v)
+        for _ in range(int(cfg.reduced_solve_refine)):
+            resid = rhs_v - s_mat @ delta
+            delta = delta + torch.linalg.lu_solve(lu, piv, resid)
     delta_p = delta.reshape(w, 6) * fm[:, None]
 
     wtdp = torch.sum(sys.wl * delta_p[None, :, :, None], dim=(1, 2))   # [L, 3]
@@ -247,6 +291,8 @@ def _solve_from_system(sys: BASystem, poses, lm_pos, lam, cfg):
 
     pred_p = 0.5 * torch.sum(delta_p * (lam * dp_diag * delta_p + sys.g_p * fm[:, None]))
     pred_l = 0.5 * torch.sum(delta_l * (lam * dl_diag * delta_l + sys.g_l))
+    if group is not None:
+        pred_l = _all_reduce(pred_l, group)
     pred = pred_p + pred_l
 
     new_poses = pose_retract(poses, delta_p)
@@ -254,16 +300,19 @@ def _solve_from_system(sys: BASystem, poses, lm_pos, lam, cfg):
     return new_poses, lm_pos + delta_l, pred
 
 
-def lm_loop(prob: LandmarkMajorProblem, cam, cfg, init_lam=None):
+def lm_loop(prob: LandmarkMajorProblem, cam, cfg, init_lam=None, group=None):
     """The LM accept/reject loop.
 
     Returns ``(poses, lm_pos, initial_cost, final_cost, accepted, last_rel,
-    final_lam)``; ``init_lam`` overrides ``cfg.init_damping``."""
+    final_lam)``; ``init_lam`` overrides ``cfg.init_damping``. With a
+    process ``group``, ``prob`` holds this rank's landmark block and the
+    reductions are summed over the group (module docstring); the returned
+    ``lm_pos`` is the local block."""
     poses, lm_pos = prob.poses, prob.lm_pos
     dtype, dev = poses.dtype, poses.device
     hd = cfg.huber_delta_px
-    cost0 = _lm_major_cost(poses, lm_pos, prob, cam, cfg.min_depth, hd)
-    sys = _build_system(poses, lm_pos, prob, cam, cfg)
+    cost0 = _lm_major_cost(poses, lm_pos, prob, cam, cfg.min_depth, hd, group)
+    sys = _build_system(poses, lm_pos, prob, cam, cfg, group)
 
     if init_lam is None:
         lam = torch.tensor(cfg.init_damping, dtype=dtype, device=dev)
@@ -283,14 +332,14 @@ def lm_loop(prob: LandmarkMajorProblem, cam, cfg, init_lam=None):
         for _ in range(2):
             if done:
                 break
-            cand_p, cand_l, pred = _solve_from_system(sys, poses, lm_pos, lam, cfg)
-            cand_cost = _lm_major_cost(cand_p, cand_l, prob, cam, cfg.min_depth, hd)
+            cand_p, cand_l, pred = _solve_from_system(sys, poses, lm_pos, lam, cfg, group)
+            cand_cost = _lm_major_cost(cand_p, cand_l, prob, cam, cfg.min_depth, hd, group)
             ok = bool((cand_cost < cost) & torch.isfinite(cand_cost))
             cost_prev = cost
             rho = (cost_prev - cand_cost) / torch.clamp(pred, min=1e-20)
             if ok:
                 poses, lm_pos, cost = cand_p, cand_l, cand_cost
-                sys = _build_system(poses, lm_pos, prob, cam, cfg)
+                sys = _build_system(poses, lm_pos, prob, cam, cfg, group)
                 shrink = torch.clamp(1.0 - (2.0 * rho - 1.0) ** 3, min=1.0 / 3.0)
                 new_lam = torch.clamp(lam * shrink, cfg.min_damping, cfg.max_damping)
                 nu = torch.full_like(nu, 2.0)
@@ -336,9 +385,6 @@ def bundle_adjust(
     stable order) and scatter positions back. Observations are masked by
     ``lm_valid[obs_lm]`` before the remap, so no observation can alias a
     dead landmark."""
-    if cfg.reduced_solve_f64:
-        raise NotImplementedError(
-            "reduced_solve_f64 (the f64 island) is not ported yet (ROADMAP Queue 1, item 18)")
     lcap = window.landmark_capacity
     l_small = cfg.ba_compact_landmarks
     if 0 < l_small < lcap and int(window.lm_valid.sum()) <= l_small:

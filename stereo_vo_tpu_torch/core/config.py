@@ -94,7 +94,8 @@ class BackendConfig:
     # live-landmark compaction of the window solve; 0 disables
     ba_compact_landmarks: int = 512
     reduced_solve_refine: int = 1
-    # f64 solve of the reduced camera system: not ported yet (must stay False)
+    # solve the reduced camera system in float64, once, without refinement
+    # (the f64 island; backend/schur.py)
     reduced_solve_f64: bool = False
     init_damping: float = 1e-4
     min_damping: float = 1e-6

@@ -6,6 +6,7 @@ from stereo_vo_tpu_torch.eval.trajectory import (
     write_kitti_trajectory,
     write_tum_trajectory,
 )
+from stereo_vo_tpu_torch.eval.cv_twin import run_cv_twin
 from stereo_vo_tpu_torch.eval.viz import draw_tracks, plot_trajectory
 
 __all__ = [
@@ -19,4 +20,5 @@ __all__ = [
     "poses_to_positions",
     "draw_tracks",
     "plot_trajectory",
+    "run_cv_twin",
 ]

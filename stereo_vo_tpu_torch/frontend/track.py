@@ -1,7 +1,8 @@
 """Feature-tracker state machine (counterpart of ``stereo_vo_tpu/frontend/track.py``).
 
 Fixed-capacity masked arrays; each call tracks from the last image to the
-current one with fused forward/backward LK and applies the reference's gates:
+current one with fused forward/backward LK (or, with ``flow_back=False``,
+forward-only LK) and applies the reference's gates:
 the 2 px round trip, ``max_parallax``, parallax against the keyframe position
 averaged over the *kept* features, and ``percent_lost = 1 - kept / init_count``.
 
@@ -24,7 +25,7 @@ from typing import NamedTuple, Optional, Tuple
 import torch
 
 from stereo_vo_tpu_torch.core.config import FrontendConfig
-from stereo_vo_tpu_torch.ops.lk import lk_track_fwdbwd
+from stereo_vo_tpu_torch.ops.lk import lk_track_fwdbwd, lk_track_pyramid
 
 # sentinel for "no flow estimate yet": always takes the full pyramid
 NO_FLOW = 1e9
@@ -96,17 +97,22 @@ def track_step(
     state: TrackerState,
     new_pyramid: Tuple[torch.Tensor, ...],
     cfg: FrontendConfig,
+    flow_back: bool = True,
 ) -> Tuple[TrackerState, TrackStats]:
-    """One tracking update (``FeatureTracker::track_features``)."""
+    """One tracking update (``FeatureTracker::track_features``).
+
+    ``flow_back=False`` tracks forward only (``lk_track_pyramid`` over the
+    full pyramid at full width): no round-trip gate, no hint, no compaction,
+    and the next step's hint gate reads ``NO_FLOW``."""
     prev_pyr = list(state.pyramid)
     new_pyr = list(new_pyramid)
     kwargs = dict(
         window=cfg.lk_window, max_iters=cfg.lk_iters, eps=cfg.lk_eps,
-        min_eig_threshold=cfg.lk_min_eig, bwd_levels=cfg.lk_bwd_levels,
+        min_eig_threshold=cfg.lk_min_eig,
     )
     hint_thresh = cfg.lk_hint_pred_err_px
     hint_levels = cfg.lk_hint_levels
-    use_hint_path = hint_thresh > 0 and 0 < hint_levels < len(prev_pyr)
+    use_hint_path = flow_back and hint_thresh > 0 and 0 < hint_levels < len(prev_pyr)
     hint = None
     hinted = False
     if use_hint_path:
@@ -117,30 +123,35 @@ def track_step(
         if hinted:
             return lk_track_fwdbwd(
                 prev_pyr[:hint_levels], new_pyr[:hint_levels], pts, val,
-                init_flow=hint_vec, bwd_from_original=True, **kwargs,
+                init_flow=hint_vec, bwd_from_original=True,
+                bwd_levels=cfg.lk_bwd_levels, **kwargs,
             )
-        return lk_track_fwdbwd(prev_pyr, new_pyr, pts, val, **kwargs)
+        return lk_track_fwdbwd(prev_pyr, new_pyr, pts, val, bwd_levels=cfg.lk_bwd_levels,
+                               **kwargs)
 
     f = state.feat_xy.shape[0]
     k = cfg.lk_compact_slots
-    if 0 < k < f and int(state.feat_valid.sum()) <= k:
-        idx = torch.sort((~state.feat_valid).to(torch.uint8), stable=True).indices[:k]
-        f_xy, f_ok, b_xy, b_ok = run_lk(
-            state.feat_xy[idx], state.feat_valid[idx],
-            None if hint is None else hint[idx],
-        )
-        fwd_xy = state.feat_xy.clone()
-        fwd_xy[idx] = f_xy
-        bwd_xy = state.feat_xy.clone()
-        bwd_xy[idx] = b_xy
-        fwd_ok = torch.zeros_like(state.feat_valid)
-        fwd_ok[idx] = f_ok
-        bwd_ok = torch.zeros_like(state.feat_valid)
-        bwd_ok[idx] = b_ok
+    if not flow_back:
+        fwd_xy, ok = lk_track_pyramid(prev_pyr, new_pyr, state.feat_xy, state.feat_valid,
+                                      **kwargs)
     else:
-        fwd_xy, fwd_ok, bwd_xy, bwd_ok = run_lk(state.feat_xy, state.feat_valid, hint)
-    roundtrip = _norm2(state.feat_xy - bwd_xy)
-    ok = fwd_ok & bwd_ok & (roundtrip < cfg.fb_thresh)
+        if 0 < k < f and int(state.feat_valid.sum()) <= k:
+            idx = torch.sort((~state.feat_valid).to(torch.uint8), stable=True).indices[:k]
+            f_xy, f_ok, b_xy, b_ok = run_lk(
+                state.feat_xy[idx], state.feat_valid[idx],
+                None if hint is None else hint[idx],
+            )
+            fwd_xy = state.feat_xy.clone()
+            fwd_xy[idx] = f_xy
+            bwd_xy = state.feat_xy.clone()
+            bwd_xy[idx] = b_xy
+            fwd_ok = torch.zeros_like(state.feat_valid)
+            fwd_ok[idx] = f_ok
+            bwd_ok = torch.zeros_like(state.feat_valid)
+            bwd_ok[idx] = b_ok
+        else:
+            fwd_xy, fwd_ok, bwd_xy, bwd_ok = run_lk(state.feat_xy, state.feat_valid, hint)
+        ok = fwd_ok & bwd_ok & (_norm2(state.feat_xy - bwd_xy) < cfg.fb_thresh)
 
     parallax = _norm2(fwd_xy - state.init_xy)
     ok = ok & (parallax <= cfg.max_parallax)

@@ -77,15 +77,59 @@ def scharr_y(img: torch.Tensor, mode: str = "reflect") -> torch.Tensor:
 
 
 def box_filter(img: torch.Tensor, radius: int, mode: str = "reflect") -> torch.Tensor:
-    """Unnormalized (2r+1)^2 box sum, small radii only (separable tap sums).
+    """Unnormalized (2r+1)^2 box sum.
 
-    The reference's cumulative-sum branch for radius > 3 serves the dense
-    StereoBM, which is not ported yet."""
-    if radius > 3:
-        raise NotImplementedError(
-            "box_filter: radius > 3 serves the dense StereoBM, not ported yet (ROADMAP Queue 1, item 15)")
-    ones = np.ones(2 * radius + 1, np.float32)
-    return sep_filter(img, ones, ones, mode)
+    Small radii are separable tap sums; larger ones (the dense StereoBM's
+    21x21 texture window) read four corners of an integral image, as the
+    reference does. The integral image sums the whole padded image, so on
+    general float input its rounding grows with the image's total; on
+    integer-valued input below 2^24 in total it is exact."""
+    k = 2 * radius + 1
+    if radius <= 3:
+        ones = np.ones(k, np.float32)
+        return sep_filter(img, ones, ones, mode)
+    p = pad_2d(img, radius, radius, mode)
+    ii = torch.cumsum(torch.cumsum(p, dim=-2), dim=-1)
+    ii = torch.nn.functional.pad(ii, (1, 0, 1, 0))       # leading zero row and column
+    h, w = img.shape[-2:]
+    return (
+        ii[..., k : k + h, k : k + w]
+        - ii[..., 0:h, k : k + w]
+        - ii[..., k : k + h, 0:w]
+        + ii[..., 0:h, 0:w]
+    )
+
+
+def sliding_sum(padded: torch.Tensor, k: int, dim: int) -> torch.Tensor:
+    """Sum over every length-``k`` window along ``dim``.
+
+    ``padded`` carries ``k - 1`` extra elements along ``dim``; entry ``i`` of
+    the output sums ``padded[i : i + k]``. Built by doubling (sums of 1, 2,
+    4, ... elements, then the binary digits of ``k``), so each output sums
+    only its own window: a huge value outside the window cannot round it."""
+    n_out = padded.shape[dim] - k + 1
+    sums = {1: padded}
+    c = 1
+    while c * 2 <= k:
+        a = sums[c]
+        n = a.shape[dim]
+        sums[c * 2] = a.narrow(dim, 0, n - c) + a.narrow(dim, c, n - c)
+        c *= 2
+    out = None
+    off = 0
+    for c in sorted(sums, reverse=True):
+        if k & c:
+            piece = sums[c].narrow(dim, off, n_out)
+            out = piece if out is None else out + piece
+            off += c
+    return out
+
+
+def box_sum_tree(img: torch.Tensor, radius: int, mode: str = "reflect") -> torch.Tensor:
+    """(2r+1)^2 box sum as two separable sliding sums (see ``sliding_sum``)."""
+    k = 2 * radius + 1
+    p = pad_2d(img, radius, radius, mode)
+    return sliding_sum(sliding_sum(p, k, dim=-2), k, dim=-1)
 
 
 def max_filter(img: torch.Tensor, radius: int) -> torch.Tensor:

@@ -1,5 +1,6 @@
-"""Batched pyramidal Lucas-Kanade with fused forward-backward verification
-(counterpart of ``stereo_vo_tpu/ops/lk.py::lk_track_fwdbwd``).
+"""Batched pyramidal Lucas-Kanade, with fused forward-backward verification
+(``lk_track_fwdbwd``) or forward only (``lk_track_pyramid``); counterpart of
+``stereo_vo_tpu/ops/lk.py``.
 
 Replaces ``cv::calcOpticalFlowPyrLK(..., Size(21,21), 3, {30 iters, eps 0.01})``
 with a fixed-capacity batched op: all N features advance together through the
@@ -165,6 +166,63 @@ def _image_inside(g, h, w):
     return (g[:, 0] >= 0) & (g[:, 0] <= w - 1) & (g[:, 1] >= 0) & (g[:, 1] <= h - 1)
 
 
+def _lk_level(prev_img, next_img, pts_prev, guess, active, half, slack, max_iters, eps,
+              min_eig_threshold, is_level0):
+    """One forward level pass for all features: two region extractions, one
+    template sample + GN pass. Returns ``(guess', ok, regions)``, ``regions``
+    being ``(prev_reg, next_reg, prev_org, next_org, m)`` for a backward
+    pass; only level 0 kills features, higher levels pass ``active`` through."""
+    h, w = prev_img.shape
+    win = 2 * half + 1
+    rx = ry = ((win + 2 + 2 * slack + 9) + 7) // 8 * 8
+    m = half + slack + 2
+    prev_p = pad_edge(prev_img[None], m)
+    next_p = pad_edge(next_img[None], m)
+    hp, wp = prev_p.shape[-2:]
+    prev_org = _origins(pts_prev, half, slack, m, hp, wp, ry, rx)
+    next_org = _origins(guess, half, slack, m, hp, wp, ry, rx)
+    prev_reg = extract_regions(prev_p, prev_org, ry, rx)[:, 0]
+    next_reg = extract_regions(next_p, next_org, ry, rx)[:, 0]
+    prev_reg, next_reg = _center_regions(prev_reg, next_reg)
+    tpl_pos = pts_prev - half + m - prev_org.to(pts_prev.dtype)
+    guess, solvable, inside_reg = _gn_pass(
+        prev_reg, next_reg, tpl_pos, guess, active, half,
+        max_iters, eps, min_eig_threshold, next_org, m,
+    )
+    ok = solvable & _image_inside(guess, h, w) & inside_reg if is_level0 else active
+    return guess, ok, (prev_reg, next_reg, prev_org, next_org, m)
+
+
+def lk_track_pyramid(
+    prev_pyr: List[torch.Tensor],
+    next_pyr: List[torch.Tensor],
+    pts: torch.Tensor,
+    valid: torch.Tensor,
+    window: int = 21,
+    max_iters: int = 30,
+    eps: float = 0.01,
+    min_eig_threshold: float = 1e-2,
+    slack: int = LK_SLACK,
+):
+    """Forward-only pyramidal LK: track ``pts [N, 2]`` from ``prev_pyr`` to
+    ``next_pyr`` (lists of level 0..L images). Returns ``(tracked [N, 2],
+    status [N] bool)``; invalid input slots stay invalid. The top level uses
+    ``LK_SLACK_TOP``; each level makes two ``extract_regions`` calls."""
+    half = window // 2
+    n_levels = len(prev_pyr)
+    guess = pts / float(2 ** (n_levels - 1))
+    ok = valid
+    for lvl in range(n_levels - 1, -1, -1):
+        guess, ok, _ = _lk_level(
+            prev_pyr[lvl], next_pyr[lvl], pts / float(2 ** lvl), guess, ok, half,
+            LK_SLACK_TOP if lvl == n_levels - 1 else slack,
+            max_iters, eps, min_eig_threshold, is_level0=(lvl == 0),
+        )
+        if lvl > 0:
+            guess = guess * 2.0
+    return guess, ok & valid
+
+
 def lk_track_fwdbwd(
     prev_pyr: List[torch.Tensor],
     next_pyr: List[torch.Tensor],
@@ -191,46 +249,24 @@ def lk_track_fwdbwd(
     """
     half = window // 2
     n_levels = len(prev_pyr)
-    win = 2 * half + 1
     if bwd_levels <= 0:
         bwd_levels = n_levels
 
     # ---------- forward pass, caching regions per level
-    scale_top = float(2 ** (n_levels - 1))
-    guess = (pts if init_flow is None else pts + init_flow) / scale_top
-    ok = valid
+    guess = (pts if init_flow is None else pts + init_flow) / float(2 ** (n_levels - 1))
     cache = []
-    fwd_ok = None
     for lvl in range(n_levels - 1, -1, -1):
-        lvl_slack = slack_top if lvl == n_levels - 1 else slack
-        m = half + lvl_slack + 2
-        rx = ry = ((win + 2 + 2 * lvl_slack + 9) + 7) // 8 * 8
-        prev_img = prev_pyr[lvl]
-        next_img = next_pyr[lvl]
-        h, w = prev_img.shape
-        prev_p = pad_edge(prev_img[None], m)
-        next_p = pad_edge(next_img[None], m)
-        hp, wp = prev_p.shape[-2:]
-
-        pts_l = pts / float(2 ** lvl)
-        prev_org = _origins(pts_l, half, lvl_slack, m, hp, wp, ry, rx)
-        next_org = _origins(guess, half, lvl_slack, m, hp, wp, ry, rx)
-        prev_reg = extract_regions(prev_p, prev_org, ry, rx)[:, 0]
-        next_reg = extract_regions(next_p, next_org, ry, rx)[:, 0]
-        prev_reg, next_reg = _center_regions(prev_reg, next_reg)
-        if lvl < bwd_levels:
-            cache.append((lvl, prev_reg, next_reg, prev_org, next_org, (h, w), m))
-
-        tpl_pos = pts_l - half + m - prev_org.to(pts.dtype)
-        guess, solvable, inside_reg = _gn_pass(
-            prev_reg, next_reg, tpl_pos, guess, ok, half,
-            max_iters, eps, min_eig_threshold, next_org, m,
+        guess, fwd_ok, regions = _lk_level(
+            prev_pyr[lvl], next_pyr[lvl], pts / float(2 ** lvl), guess, valid, half,
+            slack_top if lvl == n_levels - 1 else slack,
+            max_iters, eps, min_eig_threshold, is_level0=(lvl == 0),
         )
-        if lvl == 0:
-            fwd_ok = solvable & _image_inside(guess, h, w) & inside_reg & valid
+        if lvl < bwd_levels:
+            cache.append((lvl, *regions, prev_pyr[lvl].shape))
         if lvl > 0:
             guess = guess * 2.0
     tracked = guess
+    fwd_ok = fwd_ok & valid
 
     # ---------- backward pass over the cached regions (roles swapped)
     bguess = (
@@ -238,7 +274,7 @@ def lk_track_fwdbwd(
     ) / float(2 ** (bwd_levels - 1))
     bok = fwd_ok
     bwd_ok = None
-    for (lvl, prev_reg, next_reg, prev_org, next_org, (h, w), m) in cache:
+    for (lvl, prev_reg, next_reg, prev_org, next_org, m, (h, w)) in cache:
         tracked_l = tracked / float(2 ** lvl)
         tpl_pos = tracked_l - half + m - next_org.to(pts.dtype)
         bguess, bsolv, b_inside_reg = _gn_pass(

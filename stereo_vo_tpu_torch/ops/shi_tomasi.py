@@ -5,7 +5,8 @@
 2. quality gate at ``quality_level * max(response)`` and a 3x3 local-max test;
 3. greedy min-distance suppression over a candidate pool, run as the same
    parallel fixpoint as the reference (accepted set identical to the
-   sequential descending-response sweep);
+   sequential descending-response sweep), or with ``nms="maxpool"`` a
+   windowed-max test over ``min_distance``;
 4. the first ``max_corners`` accepted corners into a fixed ``[K, 2]`` array.
 
 Ordering is pinned explicitly: candidates sort by (value desc, flat index
@@ -70,11 +71,18 @@ def detect_corners(
     min_distance: float = 30.0,
     block_size: int = 3,
     border: int = 3,
+    nms: str = "greedy",
     candidates: int = 1024,
     resp: torch.Tensor = None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Detect corners with greedy min-distance NMS; returns
-    ``(xy [K, 2] float32, response [K], valid [K])``."""
+    """Detect corners; returns ``(xy [K, 2] float32, response [K], valid [K])``.
+
+    ``nms``: ``"greedy"`` is goodFeaturesToTrack's descending-response sweep
+    over the top ``candidates`` peaks; ``"maxpool"`` keeps a peak only if it
+    is the maximum within ``min_distance`` (ties to the lowest flat index),
+    then takes the ``max_corners`` strongest, which gives fewer corners."""
+    if nms not in ("greedy", "maxpool"):
+        raise ValueError(f"nms must be 'greedy' or 'maxpool', got {nms!r}")
     h, w = img.shape
     device = img.device
     if resp is None:
@@ -101,6 +109,12 @@ def detect_corners(
     is_peak = window_peaks(resp, (resp >= thresh) & (resp > 0) & inside, 1)
 
     radius = max(int(min_distance), 1)
+    if nms == "maxpool":
+        is_corner = window_peaks(resp, is_peak, radius)
+        vals, idx = _sort_desc(torch.where(is_corner, resp, -1.0).reshape(-1), max_corners)
+        xy = torch.stack([(idx % w).to(torch.float32), (idx // w).to(torch.float32)], dim=-1)
+        return xy, vals, vals > 0
+
     # pre-thin so the fixed-size pool is spatially representative
     thin_r = max(radius // 4, 1)
     is_peak = window_peaks(resp, is_peak, thin_r)

@@ -1,24 +1,26 @@
-"""Sparse block-matching stereo at feature pixels (counterpart of
-``stereo_vo_tpu/ops/stereo_bm.py::stereo_bm_at``).
+"""Block-matching stereo, dense and at feature pixels (counterpart of
+``stereo_vo_tpu/ops/stereo_bm.py``).
 
-cv::StereoBM(48, 21) semantics evaluated only where disparity is consumed:
-XSobel prefilter clipped to ``[0, 2*cap]``, 21x21 SAD over the disparity
-candidates, texture threshold, uniqueness ratio, sub-pixel parabola, and -1
-for invalid pixels. Bit-exact with the reference: prefiltered values are
-integers <= 2*cap, so every SAD is an exact f32 integer, and ``argmin`` takes
-the first minimum over ascending disparity in both.
+cv::StereoBM(48, 21) semantics: XSobel prefilter clipped to ``[0, 2*cap]``,
+21x21 SAD over the disparity candidates, texture threshold, uniqueness ratio,
+sub-pixel parabola, and -1 for invalid pixels. Bit-exact with the reference:
+prefiltered values are integers <= 2*cap, so every SAD is an exact f32
+integer, and ``argmin`` takes the first minimum over ascending disparity in
+both.
 
-Each feature extracts a left window region and a right search-band region
-(``ops.regions.extract_regions``, the CUDA kernel on the card); the 48 SADs
-are one batched ``unfold`` expression. The dense ``stereo_bm_disparity`` is
-not ported yet.
+``stereo_bm_disparity`` builds the whole ``[D, H, W]`` cost volume (90 MB in
+f32 at 376x1241) with windowed sliding sums, so an inside pixel's cost never
+sums the 1e6 fill of the columns left of its shift. ``stereo_bm_at`` matches
+only at features: each extracts a left window region and a right search-band
+region (``ops.regions.extract_regions``, the CUDA kernel on the card), and
+the 48 SADs are one batched ``unfold`` expression.
 """
 
 from __future__ import annotations
 
 import torch
 
-from stereo_vo_tpu_torch.ops.filters import sobel_x
+from stereo_vo_tpu_torch.ops.filters import box_filter, box_sum_tree, sobel_x
 from stereo_vo_tpu_torch.ops.regions import extract_regions, pad_edge
 
 
@@ -39,6 +41,74 @@ def _take_window(reg: torch.Tensor, row0: torch.Tensor, col0: torch.Tensor,
     b = torch.arange(n, device=reg.device)[:, None, None]
     vals = reg[b, iy.clamp(0, size_y - 1)[:, :, None], ix.clamp(0, size_x - 1)[:, None, :]]
     return torch.where(ok, vals, 0.0)
+
+
+def _subpixel_valid(costs, best_d, best_c, num_disparities, uniqueness_ratio):
+    """Uniqueness test and sub-pixel parabola from the ``[D, ...]`` costs:
+    ``(disp, unique_ok)``. The parabola is taken at ``clip(best, 1, D-2)``
+    and used only where that equals ``best``."""
+    ds = torch.arange(num_disparities, device=costs.device).reshape(
+        (-1,) + (1,) * best_d.dim())
+    near = torch.abs(ds - best_d[None]) <= 1
+    second = torch.amin(torch.where(near, float("inf"), costs), dim=0)
+    unique_ok = second * 100.0 >= best_c * (100.0 + uniqueness_ratio)
+    d0 = torch.clamp(best_d, 1, num_disparities - 2)
+    c_m = torch.gather(costs, 0, (d0 - 1)[None])[0]
+    c_0 = torch.gather(costs, 0, d0[None])[0]
+    c_p = torch.gather(costs, 0, (d0 + 1)[None])[0]
+    denom = torch.clamp(c_m + c_p - 2.0 * c_0, min=1e-9)
+    delta = torch.clamp((c_m - c_p) / (2.0 * denom), -0.5, 0.5)
+    disp = torch.where(best_d == d0, best_d + delta, best_d.to(torch.float32))
+    return disp, unique_ok
+
+
+def stereo_bm_disparity(
+    left: torch.Tensor,
+    right: torch.Tensor,
+    num_disparities: int = 48,
+    block_size: int = 21,
+    prefilter_cap: int = 31,
+    texture_threshold: int = 10,
+    uniqueness_ratio: int = 15,
+) -> torch.Tensor:
+    """Dense float32 disparity ``[H, W]`` of the left image; -1 where invalid.
+
+    A pixel is valid when its full window and search range fit
+    (``radius <= y < h - radius``, ``D + radius - 1 <= x < w - radius``),
+    it passes the uniqueness and texture tests, and its best cost is below
+    1e5 (a cost that summed the 1e6 fill of unmatched columns is not)."""
+    h, w = left.shape
+    radius = block_size // 2
+    cap = float(prefilter_cap)
+    lpre = _xsobel_prefilter(left, prefilter_cap)
+    rpre = _xsobel_prefilter(right, prefilter_cap)
+
+    # right image shifted by d at every candidate: window d of the left-padded
+    # right image starts at column D - d
+    r_padded = torch.nn.functional.pad(rpre, (num_disparities, 0))
+    windows = r_padded.unfold(1, w, 1)                       # [H, D + 1, W]
+    shift = num_disparities - torch.arange(num_disparities, device=left.device)
+    shifted = windows[:, shift].permute(1, 0, 2)             # [D, H, W]
+    ds = torch.arange(num_disparities, device=left.device)[:, None, None]
+    xs = torch.arange(w, device=left.device)
+    # columns x < d have no right-image counterpart
+    diff = torch.where(xs >= ds, torch.abs(lpre - shifted), 1e6)
+    costs = box_sum_tree(diff, radius)                       # [D, H, W]
+
+    best_d = torch.argmin(costs, dim=0)                      # first minimum
+    best_c = torch.amin(costs, dim=0)
+    disp, unique_ok = _subpixel_valid(costs, best_d, best_c, num_disparities,
+                                      uniqueness_ratio)
+    tex_ok = box_filter(torch.abs(lpre - cap), radius) >= texture_threshold
+    ys = torch.arange(h, device=left.device)[:, None]
+    inside = (
+        (ys >= radius)
+        & (ys < h - radius)
+        & (xs[None, :] >= num_disparities + radius - 1)
+        & (xs[None, :] < w - radius)
+    )
+    valid = inside & unique_ok & tex_ok & (best_c < 1e5)
+    return torch.where(valid, disp, -1.0).to(torch.float32)
 
 
 def disparity_at(disparity: torch.Tensor, xy: torch.Tensor) -> torch.Tensor:
@@ -145,10 +215,7 @@ def _stereo_bm_at_full(
 
     best_d = torch.argmin(sads, dim=0)                  # first minimum
     best_c = torch.amin(sads, dim=0)
-    ds = torch.arange(num_disparities, device=xy.device)[:, None]
-    near = torch.abs(ds - best_d[None]) <= 1
-    second = torch.amin(torch.where(near, float("inf"), sads), dim=0)
-    unique_ok = second * 100.0 >= best_c * (100.0 + uniqueness_ratio)
+    disp, unique_ok = _subpixel_valid(sads, best_d, best_c, num_disparities, uniqueness_ratio)
     tex = torch.sum(torch.abs(lwin - cap), dim=(1, 2))
     tex_ok = tex >= texture_threshold
     inside = (
@@ -157,12 +224,5 @@ def _stereo_bm_at_full(
         & (xi >= num_disparities + radius - 1)
         & (xi < w - radius)
     )
-    d0 = torch.clamp(best_d, 1, num_disparities - 2)
-    c_m = torch.gather(sads, 0, (d0 - 1)[None])[0]
-    c_0 = torch.gather(sads, 0, d0[None])[0]
-    c_p = torch.gather(sads, 0, (d0 + 1)[None])[0]
-    denom = torch.clamp(c_m + c_p - 2.0 * c_0, min=1e-9)
-    delta = torch.clamp((c_m - c_p) / (2.0 * denom), -0.5, 0.5)
-    disp = torch.where(best_d == d0, best_d + delta, best_d.to(torch.float32))
     ok = inside & unique_ok & tex_ok & valid
     return torch.where(ok, disp, -1.0).to(torch.float32)

@@ -11,6 +11,8 @@ port's isolation from JAX.
   differ (seeded torch generator vs ``jax.random``), so trajectories differ
   by a little; keyframe ATE must be within 0.02 m of the reference's
   (both about 0.01 m on this world) and the keyframe count within 1.
+- Every public name of the JAX package's ``ops``, ``backend``, ``parallel``
+  and ``eval`` has a counterpart in the port.
 """
 
 import os
@@ -191,6 +193,8 @@ def test_port_runs_without_jax(tmp_path):
         "import stereo_vo_tpu_torch.ops, stereo_vo_tpu_torch.eval, stereo_vo_tpu_torch.engine.convert\n"
         "import stereo_vo_tpu_torch.cli, stereo_vo_tpu_torch.smoke, stereo_vo_tpu_torch.data.kitti\n"
         "import stereo_vo_tpu_torch.eval.viz, stereo_vo_tpu_torch.utils.profiling\n"
+        "import stereo_vo_tpu_torch.parallel, stereo_vo_tpu_torch.parallel.dryrun\n"
+        "import stereo_vo_tpu_torch.eval.cv_twin\n"
         "cam = CameraInfo(focal=200.0, cx=80.0, cy=60.0, baseline=0.4)\n"
         "cfg = PipelineConfig(camera=cam, frontend=FrontendConfig(min_distance=8.0,\n"
         "    parallax_thresh=6.0), backend=BackendConfig(feature_capacity=256,\n"
@@ -218,3 +222,20 @@ def test_port_runs_without_jax(tmp_path):
     assert proc.stdout.strip().endswith("ok")
     assert (tmp_path / "trajectory_kitti.txt").exists()
     assert (tmp_path / "trajectory_tum.txt").exists()
+
+
+# JAX names the port gives another name, because what they do differs:
+# torch has no global array to assemble, so a rank keeps its own dp block
+RENAMED = {"host_local_problem_to_global": "local_dp_block"}
+
+
+@pytest.mark.parametrize("package", ["ops", "backend", "parallel", "eval"])
+def test_public_names_have_port_counterparts(package):
+    import importlib
+
+    jax_mod = importlib.import_module(f"stereo_vo_tpu.{package}")
+    port_mod = importlib.import_module(f"stereo_vo_tpu_torch.{package}")
+    missing = [name for name in jax_mod.__all__
+               if RENAMED.get(name, name) not in port_mod.__all__
+               or not hasattr(port_mod, RENAMED.get(name, name))]
+    assert not missing, f"stereo_vo_tpu_torch.{package} lacks {missing}"
