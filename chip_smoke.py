@@ -9,28 +9,42 @@ JAX or of the JAX package. Phases, each fatal on failure:
 
 1. device: print the card (``nvidia-smi`` name and power limit) and the
    CUDA version; switch TF32 off;
-2. build: compile ``stereo_vo_tpu_torch/csrc/extract_regions.cu`` with nvcc
-   and print the build seconds and what ptxas reports;
-3. kernel check: the region-extraction kernel against its plain PyTorch
+2. build: compile both CUDA sources, ``stereo_vo_tpu_torch/csrc/
+   extract_regions.cu`` and ``lk_level.cu``, one nvcc each, started
+   together, and print each build's seconds and what ptxas reports;
+3. region-extraction kernel check: the kernel against its plain PyTorch
    version (``extract_regions_ref``) at the shapes the main path gives it,
-   bitwise (``torch.equal``: a copy has no rounding), then both timed with
-   CUDA events (median of 20 samples);
+   bitwise (``torch.equal``: a copy has no rounding), then both and the one
+   PyTorch indexing call that computes the same function timed with CUDA
+   events (median of 20 samples), beside the bound from the bytes moved;
+3b. LK level-pass kernel check: ``lk_level_pass`` against
+   ``lk_level_pass_ref`` on frames 0-1 of phase 4's world and their
+   detected corners (tiled to N, guesses within +-slack), at ``LK_SHAPES``
+   (level 0 and 1 with 56x56 regions, the top level and the hinted top with
+   88x88, N = 160 and 448), forward and backward role, within the ``LK_*``
+   tolerances, both timed, beside the bound from this run's bytes and
+   iterations;
 4. main path: ``run_vo`` over a 20-frame synthetic KITTI-sized world
    (376x1241, ``kitti00`` intrinsics, default capacities) on ``cuda``, with
-   the kernel's launch counter zeroed just before and read just after; it
+   the kernels' launch counters zeroed just before and read just after; it
    checks the poses (20, finite), at least 2 keyframes after bootstrap, the
    median tracked count over the steps (> 50), PnP on every accepted frame,
-   at least 2 kernel launches per LK level pass, and the aligned keyframe
-   ATE;
+   exactly one ``lk_level_pass`` launch per LK level pass (forward plus
+   backward) and two ``extract_regions`` launches per keyframe, and the
+   aligned keyframe ATE;
 5. chunked replay with preload: ``run_vo(chunk_size=64, preload_device=True,
    checkpoint_every=65, out_dir=...)`` on ``cuda`` over the bench's
    129-frame world (bootstrap + two chunks of 64; same parameters as
    phase 4); it checks 129 finite poses, no preload miss, hint engagement,
    the keyframe count over frames 49-64, the aligned keyframe ATE, 129
-   ``metrics.jsonl`` rows and at least 2 kernel launches per LK level pass;
+   ``metrics.jsonl`` rows and the launches as in phase 4;
 6. resume: ``run_vo(resume_from=<phase 5's checkpoint>, chunk_size=64)``
    over the same frames gives exactly frames 65-128, finite, the first
-   within ``RESUME_TOL`` of phase 5's pose for frame 65;
+   within ``RESUME_TOL`` of phase 5's pose for frame 65, launches as in
+   phase 4; then (6b) ``utils.profiling.profile_replay`` streams frames
+   0-80 of that world and profiles frames 65-72: launches, syncs and device
+   ms per frame, the LK kernel's launches in the device trace, step and
+   ``track_step`` p50;
 7. the CLI on real imagery: a child process runs
    ``python -m stereo_vo_tpu_torch.cli run`` on ``tests/fixtures/real``
    (5 KITTI-layout 376x1241 pairs with ground truth) on ``cuda``, with cv2,
@@ -45,8 +59,8 @@ JAX or of the JAX package. Phases, each fatal on failure:
    equal the sparse ``stereo_bm_at`` there (validity identical, values
    within ``BM_TOL``); (b) forward-only tracking
    (``track_step(flow_back=False)``) over phase 4's 19 consecutive pairs,
-   each from a fresh ``tracker_init`` on frame t's detections: exactly 2
-   kernel launches per pyramid level per pair, a median tracked count
+   each from a fresh ``tracker_init`` on frame t's detections: exactly one
+   ``lk_level_pass`` launch per pyramid level per pair, a median tracked count
    over 50, kept counts and ms beside the fwd/bwd path's on the same pairs;
    (c) maxpool detection gives 0.3-1.0 x the greedy count, its corners
    pairwise at least ``min_distance`` apart; (d) ``run_vo`` over phase 4's
@@ -65,7 +79,9 @@ JAX or of the JAX package. Phases, each fatal on failure:
 Launch counts are zeroed just before, and read just after, each of phases
 4-6 and 8b (phase 7's launches happen in a child process and are not
 counted). The line before the last is the kernels' JSON record, with
-launches summed over phases 4-6 and 8b; the last line is ``{"ok": true,
+launches summed over phases 4-6 and 8b, the headline shape's times
+(extraction: 160 regions of 56x56 at level 0; LK: the level-0 forward pass,
+56x56, N = 160) and bounds; the last line is ``{"ok": true,
 "device": {...}}``. Without a CUDA device, or without the package beside it,
 the script exits non-zero before printing any result.
 """
@@ -142,6 +158,31 @@ SHARD_POSE_TOL = 2e-4
 SHARD_LM_TOL = 2e-3
 TIMED = ("lk_l0_56_n160", "lk_top_88_n160", "bm_left_32x32_n320", "bm_right_32x80_n320")
 HEADLINE = "lk_l0_56_n160"
+# phase 3b: the LK level pass at the main path's shapes, (label, pyramid level
+# of the 376x1241 frames, top-level slack?, features): level 0 and level 1
+# (56x56 regions), the 47x156 top level and the 188x621 top of the hinted
+# two-level pyramid (88x88), at the compacted and the full width
+LK_SHAPES = [
+    ("l0_56_n160", 0, False, 160), ("l0_56_n448", 0, False, 448),
+    ("l1_56_n160", 1, False, 160), ("l1_56_n448", 1, False, 448),
+    ("top_88_n160", 3, True, 160), ("top_88_n448", 3, True, 448),
+    ("hint_top_88_n160", 1, True, 160), ("hint_top_88_n448", 1, True, 448),
+]
+LK_HEADLINE = "l0_56_n160 forward"
+# kernel vs plain version of one level pass. The 441-term Gram and GN sums and
+# the region mean add in another order, which can flip an eps or oscillation
+# test at its margin: a flipped feature takes one iteration more or fewer and
+# moves by up to ~eps = 0.01 px. solvable flips only with min_eig exactly at
+# its threshold.
+LK_SOLVABLE_FLIPS = 1           # per call
+LK_OK_SHARE = 0.995             # final ok equal on this share of active features
+LK_POS_TOL = 0.02               # px, features ok in both
+LK_POS_MEDIAN_TOL = 1e-4        # px, median over features ok in both
+LK_CENTER_RTOL = 1e-4           # relative to max(|c|, 1)
+# the card's published rates (H100 SXM): HBM bytes/s and f32 FLOP/s outside
+# the tensor cores
+HBM_BYTES_PER_S = 3.35e12
+F32_FLOP_PER_S = 67e12
 
 
 def _log(msg: str) -> None:
@@ -178,10 +219,200 @@ def _inputs(torch, gen, hp, wp, ry, rx, n, device):
 
 
 def _lk_passes(cfg, steps) -> int:
-    """LK level passes over stepped frames: the hinted short pyramid runs
-    ``lk_hint_levels`` levels, a full pass ``lk_max_level + 1``."""
-    return sum(cfg.frontend.lk_hint_levels if s["hinted"] else cfg.frontend.lk_max_level + 1
+    """LK level passes over stepped frames, forward plus backward: the hinted
+    short pyramid runs ``lk_hint_levels`` levels forward, a full pass
+    ``lk_max_level + 1``; the backward pass runs the finest ``lk_bwd_levels``
+    of them (all when that is 0)."""
+    fc = cfg.frontend
+
+    def passes(levels):
+        return levels + (min(fc.lk_bwd_levels, levels) if fc.lk_bwd_levels > 0 else levels)
+
+    return sum(passes(fc.lk_hint_levels if s["hinted"] else fc.lk_max_level + 1)
                for s in steps)
+
+
+def _zero_launches() -> None:
+    from stereo_vo_tpu_torch.ops.lk import lk_level_pass
+    from stereo_vo_tpu_torch.ops.regions import extract_regions
+
+    lk_level_pass.launches = extract_regions.launches = 0
+
+
+def _launches() -> dict:
+    from stereo_vo_tpu_torch.ops.lk import lk_level_pass
+    from stereo_vo_tpu_torch.ops.regions import extract_regions
+
+    return {"lk_level_pass": lk_level_pass.launches, "extract_regions": extract_regions.launches}
+
+
+def _check_launches(what, launches, lk_want, keyframes) -> None:
+    """One kernel launch per LK level pass and two region extractions per
+    keyframe (sparse StereoBM), exactly."""
+    lk, er = launches["lk_level_pass"], launches["extract_regions"]
+    _log(f"{what}: lk_level_pass launches {lk} for {lk_want} LK level passes, "
+         f"extract_regions launches {er} for {keyframes} keyframes")
+    _check(lk == lk_want > 0, f"{what}: {lk} lk_level_pass launches for {lk_want} passes")
+    _check(er == 2 * keyframes, f"{what}: {er} extract_regions launches for {keyframes} keyframes")
+
+
+def _bound_ms(nbytes: float, flops: float):
+    """The least time the card could take: bytes over HBM bandwidth or f32
+    operations over the f32 peak, whichever is longer, and which it was."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / F32_FLOP_PER_S
+    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def _distinct_pixels(torch, origins, m, h, w, ry, rx) -> int:
+    """Distinct pixels of an [h, w] image that regions at ``origins`` (in
+    coordinates padded by ``m``, edge-replicated) read."""
+    mask = torch.zeros((h, w), dtype=torch.bool, device=origins.device)
+    o = origins.to(torch.int64)
+    rows = (o[:, 1:2] - m + torch.arange(ry, device=o.device)).clamp(0, h - 1)
+    cols = (o[:, 0:1] - m + torch.arange(rx, device=o.device)).clamp(0, w - 1)
+    mask[rows[:, :, None], cols[:, None, :]] = True
+    return int(mask.sum())
+
+
+def _build_all(cuda_build, names) -> None:
+    """Phase 2: one nvcc per source, all started together."""
+    import threading
+
+    errors = []
+
+    def build(name):
+        try:
+            cuda_build.build(name)
+        except RuntimeError as e:       # nvcc failed: reported below
+            errors.append(e)
+
+    threads = [threading.Thread(target=build, args=(name,)) for name in names]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    _check(not errors, f"build: {errors}")
+    for name in names:
+        cuda_build.load(name)
+        _log(f"build: {name}.cu nvcc {cuda_build.build_seconds.get(name, 0.0):.2f} s")
+        for line in cuda_build.build_log.get(name, "").splitlines():
+            _log(f"  ptxas: {line.strip()}")
+    _log(f"build: {len(names)} libraries in {time.perf_counter() - t0:.2f} s")
+
+
+def _lk_pass_args(torch, gen, prev, nxt, corners, lvl, top, n, fc):
+    """Forward-role arguments of one level pass on real frames: the detected
+    corners (tiled to ``n``) at pyramid level ``lvl``, guesses within
+    +-slack of them, ~5% of slots inactive as in a live tracker."""
+    from stereo_vo_tpu_torch.ops.lk import LK_SLACK, LK_SLACK_TOP, _origins, level_geometry
+
+    dev = prev.device
+    half = fc.lk_window // 2
+    slack = LK_SLACK_TOP if top else LK_SLACK
+    region, m = level_geometry(half, slack)
+    h, w = prev.shape
+    pts = corners[torch.arange(n, device=dev) % corners.shape[0]] / float(2 ** lvl)
+    guess = pts + ((torch.rand((n, 2), generator=gen) * 2 - 1) * slack).to(dev)
+    active = (torch.rand(n, generator=gen) > 0.05).to(dev)
+    prev_org = _origins(pts, half, slack, m, h + 2 * m, w + 2 * m, region, region)
+    next_org = _origins(guess, half, slack, m, h + 2 * m, w + 2 * m, region, region)
+    tpl_pos = pts - half + m - prev_org.to(torch.float32)
+    return [prev, nxt, prev_org, next_org, tpl_pos, guess, active, None, half, m, region,
+            fc.lk_iters, fc.lk_eps, fc.lk_min_eig], pts
+
+
+def _compare_pass(torch, label, got, want, args) -> dict:
+    """Phase 3b's tolerances on one call; returns its errors."""
+    from stereo_vo_tpu_torch.ops.lk import _image_inside
+
+    h, w = args[0].shape
+    active = args[6]
+
+    def ok(res):
+        return res[1] & res[2] & _image_inside(res[0], h, w)
+
+    flips = int((got[1] != want[1]).sum())
+    g_ok, w_ok = ok(got), ok(want)
+    n_act = max(int(active.sum()), 1)
+    ok_share = int(((g_ok == w_ok) & active).sum()) / n_act
+    both = g_ok & w_ok
+    d = (got[0] - want[0]).abs().amax(dim=1)[both]
+    c_err = float(((got[3] - want[3]).abs() / want[3].abs().clamp(min=1.0)).max())
+    err = {"solvable_flips": flips, "ok_share": ok_share, "ok_both": int(both.sum()),
+           "max_px": float(d.max()) if d.numel() else 0.0,
+           "median_px": float(d.median()) if d.numel() else 0.0, "center_rel": c_err,
+           "iters_equal": float((got[4] == want[4]).float().mean()),
+           "mean_iters": float(got[4][want[1]].float().mean()) if bool(want[1].any()) else 0.0}
+    _check(flips <= LK_SOLVABLE_FLIPS, f"{label}: {flips} solvable flips")
+    _check(ok_share >= LK_OK_SHARE, f"{label}: ok equal on {ok_share:.4f} of active features")
+    _check(err["max_px"] <= LK_POS_TOL and err["median_px"] <= LK_POS_MEDIAN_TOL,
+           f"{label}: positions {err}")
+    _check(c_err <= LK_CENTER_RTOL, f"{label}: center {c_err}")
+    _check(err["ok_both"] > 0, f"{label}: no feature ok in both")
+    return err
+
+
+def _lk_level_check(torch, cfg, world, dev) -> dict:
+    """Phase 3b: ``lk_level_pass`` against ``lk_level_pass_ref`` on the card,
+    forward and backward role, at ``LK_SHAPES``; returns the headline
+    shape's record and the largest position error."""
+    from stereo_vo_tpu_torch.frontend.detect import detect_features
+    from stereo_vo_tpu_torch.ops.lk import lk_level_pass, lk_level_pass_ref
+    from stereo_vo_tpu_torch.ops.pyramid import build_pyramid
+
+    fc = cfg.frontend
+    pyrs = [build_pyramid(torch.from_numpy(world.render(i)[0]).to(dev), fc.lk_max_level)
+            for i in (0, 1)]
+    xy, valid = detect_features(pyrs[0][0], fc)
+    corners = xy[valid]
+    _log(f"lk level pass inputs: frames 0-1 of the 20-frame world, {len(corners)} corners")
+    gen = torch.Generator(device="cpu").manual_seed(1)
+    max_px, head = 0.0, None
+    for label, lvl, top, n in LK_SHAPES:
+        fwd, pts = _lk_pass_args(torch, gen, pyrs[0][lvl], pyrs[1][lvl], corners, lvl, top,
+                                 n, fc)
+        want = lk_level_pass_ref(*fwd)
+        # backward role: the images and origins swap, the template sits at the
+        # forward endpoint, the forward constant centers both regions
+        half, m = fwd[8], fwd[9]
+        slack = m - half - 2
+        bwd = list(fwd)
+        bwd[0:4] = [fwd[1], fwd[0], fwd[3], fwd[2]]
+        bwd[4] = want[0] - half + m - fwd[3].to(torch.float32)
+        bwd[5] = pts + ((torch.rand((n, 2), generator=gen) * 2 - 1) * slack).to(dev)
+        bwd[6] = want[1] & want[2]
+        bwd[7] = want[3]
+        for role, args in (("forward", fwd), ("backward", bwd)):
+            tag = f"{label} {role}"
+            ref = lk_level_pass_ref(*args)
+            got = lk_level_pass(*args)
+            torch.cuda.synchronize()
+            err = _compare_pass(torch, tag, got, ref, args)
+            max_px = max(max_px, err["max_px"])
+            k_ms = _time_ms(torch, lambda: lk_level_pass(*args))
+            p_ms = _time_ms(torch, lambda: lk_level_pass_ref(*args), samples=3, inner=1)
+            # bytes: both regions' distinct source pixels, the per-feature
+            # inputs (2 origins, tpl_pos, guess, active, center) and outputs
+            # (guess, solvable, in_region, iterations); operations: staging
+            # (mean and centering), 9 per bilinear sample of the template
+            # patch, 27 per window pixel for Scharr and Gram, and 14 per
+            # window pixel and iteration (sample, di, two products, two sums)
+            h, w = args[0].shape
+            region, nwin, wt = args[10], (2 * half + 1) ** 2, (2 * half + 3) ** 2
+            nbytes = (4 * (_distinct_pixels(torch, args[2], m, h, w, region, region)
+                           + _distinct_pixels(torch, args[3], m, h, w, region, region))
+                      + n * (8 + 8 + 8 + 8 + 1 + 4) + n * (8 + 1 + 1 + 4))
+            staging = (3 if role == "forward" else 2) * region * region
+            flops = n * (staging + 9 * wt + 27 * nwin) + int(got[4].sum()) * 14 * nwin
+            bound, bound_by = _bound_ms(nbytes, flops)
+            _log(f"check lk {tag}: [{n}] from {h}x{w}, region {region}: {json.dumps(err)}; "
+                 f"kernel {k_ms * 1e3:.1f} us, plain {p_ms * 1e3:.1f} us, bound "
+                 f"{bound * 1e3:.2f} us ({bound_by}: {nbytes / 1e6:.2f} MB, "
+                 f"{flops / 1e6:.2f} MFLOP)")
+            if tag == LK_HEADLINE:
+                head = {"ms": k_ms, "plain_ms": p_ms, "bound_ms": bound, "bound_by": bound_by}
+    return {**head, "max_abs_err": max_px}
 
 
 def _time_ms(torch, fn, samples=20, inner=10):
@@ -228,8 +459,6 @@ def _check_replay(cfg, run, gt_poses, out_dir, wall_s, launches) -> None:
          f"{KF_WINDOW[0]}-{KF_WINDOW[1] - 1}, hint engagement {hint:.3f}, aligned keyframe "
          f"ATE rmse {ate_kf['rmse']:.4f} m, all-frames ATE rmse {run.ate['rmse']:.4f} m, "
          f"metrics rows {len(rows)}")
-    _log(f"chunked replay: extract_regions launches {launches} over {lk_passes} LK level "
-         f"passes and {int(kf.sum())} keyframes")
     _check(len(run.poses) == N_REPLAY, f"{len(run.poses)} poses")
     _check(bool(np.all(np.isfinite(run.poses))), "non-finite pose")
     _check(len(run.chunk_seconds) == (N_REPLAY - 1) // CHUNK, f"chunks {run.chunk_seconds}")
@@ -240,7 +469,7 @@ def _check_replay(cfg, run, gt_poses, out_dir, wall_s, launches) -> None:
     _check(ate_kf["rmse"] < REPLAY_ATE_BOUND_M, f"keyframe ATE {ate_kf}")
     _check(len(rows) == N_REPLAY and [r["frame"] for r in rows] == list(range(N_REPLAY)),
            f"{len(rows)} metrics rows")
-    _check(launches >= 2 * lk_passes > 0, f"{launches} launches for {lk_passes} LK passes")
+    _check_launches("chunked replay", launches, lk_passes, int(kf.sum()))
     _check(os.path.exists(os.path.join(out_dir, "checkpoint.npz")), "no checkpoint written")
 
 
@@ -290,7 +519,7 @@ def _offline_phases(cfg, dev) -> dict:
 
     from stereo_vo_tpu_torch.data.synthetic import SyntheticStereoSequence
     from stereo_vo_tpu_torch.engine.driver import run_vo
-    from stereo_vo_tpu_torch.ops.regions import extract_regions
+    from stereo_vo_tpu_torch.utils.profiling import profile_replay
 
     phase_launches = {}
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
@@ -303,22 +532,22 @@ def _offline_phases(cfg, dev) -> dict:
         frames = list(world)
         _log(f"replay world: {len(frames)} frames rendered in {time.perf_counter() - t0:.2f} s")
         out5 = os.path.join(tmp, "replay")
-        extract_regions.launches = 0
+        _zero_launches()
         t0 = time.perf_counter()
         run5 = run_vo(iter(frames), cfg, chunk_size=CHUNK, preload_device=True, out_dir=out5,
                       checkpoint_every=CKPT_EVERY, device=dev)
         wall_s = time.perf_counter() - t0
-        phase_launches["chunked_replay"] = extract_regions.launches
+        phase_launches["chunked_replay"] = _launches()
         _check_replay(cfg, run5, world.gt_poses, out5, wall_s, phase_launches["chunked_replay"])
 
         # ---- 6. resume from phase 5's checkpoint
         ckpt = os.path.join(out5, "checkpoint.npz")
-        extract_regions.launches = 0
+        _zero_launches()
         t0 = time.perf_counter()
         run6 = run_vo(iter(frames), cfg, chunk_size=CHUNK, preload_device=True,
                       resume_from=ckpt, device=dev)
         wall_s = time.perf_counter() - t0
-        phase_launches["resume"] = extract_regions.launches
+        phase_launches["resume"] = _launches()
         idx = [s["frame"] for s in run6.frame_stats]
         first_err = float(np.abs(run6.poses[0] - run5.poses[CKPT_EVERY]).max())
         all_err = float(np.abs(run6.poses - run5.poses[CKPT_EVERY:]).max())
@@ -327,11 +556,19 @@ def _offline_phases(cfg, dev) -> dict:
         _log(f"resume: {len(run6.poses)} frames ({idx[0]}-{idx[-1]}) in {wall_s:.2f} s, "
              f"chunk s {[round(c, 3) for c in run6.chunk_seconds]}, "
              f"max |pose - straight| first {first_err:.3g} all {all_err:.3g}, "
-             f"keyframe flags equal on {kf_same} of {len(run6.frame_stats)}, "
-             f"launches {phase_launches['resume']}")
+             f"keyframe flags equal on {kf_same} of {len(run6.frame_stats)}")
+        _check_launches("resume", phase_launches["resume"], _lk_passes(cfg, run6.frame_stats),
+                        sum(st["is_keyframe"] for st in run6.frame_stats))
         _check(idx == list(range(CKPT_EVERY, N_REPLAY)), f"resumed frames {idx[:3]}..{idx[-3:]}")
         _check(bool(np.all(np.isfinite(run6.poses))), "non-finite resumed pose")
         _check(first_err < RESUME_TOL, f"first resumed pose differs by {first_err}")
+
+        # ---- 6b. where a frame's time goes: frames 65-72 of the same world,
+        # streamed, under torch.profiler
+        prof = profile_replay(cfg, frames, dev)
+        _log("profile, frames 65-72 streamed: " + json.dumps(prof))
+        _check(prof["kernel_launches"]["lk_level_kernel"] > 0,
+               "the profiled frames ran the LK kernel")
 
         # ---- 7. the CLI on real imagery, without cv2, PIL and matplotlib
         _check_cli(os.path.join(tmp, "cli"), dev)
@@ -369,7 +606,6 @@ def _forward_tracking(torch, cfg, world, dev) -> int:
     from stereo_vo_tpu_torch.frontend.detect import detect_features
     from stereo_vo_tpu_torch.frontend.track import track_step, tracker_init
     from stereo_vo_tpu_torch.ops.pyramid import build_pyramid
-    from stereo_vo_tpu_torch.ops.regions import extract_regions
 
     fc = cfg.frontend
     f_cap = cfg.backend.feature_capacity
@@ -395,18 +631,17 @@ def _forward_tracking(torch, cfg, world, dev) -> int:
             ms.append(1e3 * (time.perf_counter() - t0))
         return kept, ms
 
-    extract_regions.launches = 0
+    _zero_launches()
     kept_fwd, ms_fwd = run(False)
-    launches = extract_regions.launches
+    launches = _launches()
     kept_fb, ms_fb = run(True)
     levels = fc.lk_max_level + 1
     _log(f"forward-only tracking: kept {kept_fwd}, median {statistics.median(kept_fwd)}, "
          f"step ms p50 {statistics.median(ms_fwd):.1f} max {max(ms_fwd):.1f}")
     _log(f"fwd/bwd tracking, same pairs: kept {kept_fb}, median {statistics.median(kept_fb)}, "
          f"step ms p50 {statistics.median(ms_fb):.1f} max {max(ms_fb):.1f}")
-    _log(f"forward-only tracking: extract_regions launches {launches} "
-         f"(2 x {levels} levels x {len(states)} pairs = {2 * levels * len(states)})")
-    _check(launches == 2 * levels * len(states), f"{launches} forward-only launches")
+    _check_launches(f"forward-only tracking, {levels} levels x {len(states)} pairs", launches,
+                    levels * len(states), 0)
     _check(statistics.median(kept_fwd) > 50, f"forward-only kept {kept_fwd}")
     return launches
 
@@ -543,13 +778,7 @@ def main() -> int:
     dev = torch.device("cuda:0")
 
     # ---- 2. build
-    t0 = time.perf_counter()
-    cuda_build.load("extract_regions")
-    build_s = time.perf_counter() - t0
-    _log(f"build: extract_regions.cu {build_s:.2f} s "
-         f"(nvcc {cuda_build.build_seconds.get('extract_regions', 0.0):.2f} s)")
-    for line in cuda_build.build_log.get("extract_regions", "").splitlines():
-        _log(f"  ptxas: {line.strip()}")
+    _build_all(cuda_build, ("extract_regions", "lk_level"))
 
     # ---- 3. kernel against its plain version
     gen = torch.Generator(device="cpu").manual_seed(0)
@@ -565,25 +794,43 @@ def main() -> int:
                f"kernel equals the plain version at {label}")
         max_err = max(max_err, float((got - want).abs().max()))
         if label in TIMED:
+            # the one PyTorch call that computes the same function for C = 1,
+            # on starts placed beforehand: advanced indexing
+            o = origins.long()
+            ox = torch.where(o[:, 0] < 0, o[:, 0] + wp, o[:, 0]).clamp(0, wp - rx)
+            oy = torch.where(o[:, 1] < 0, o[:, 1] + hp, o[:, 1]).clamp(0, hp - ry)
+            rows = oy[:, None] + torch.arange(ry, device=dev)
+            cols = ox[:, None] + torch.arange(rx, device=dev)
             k_ms = _time_ms(torch, lambda: extract_regions(stack, origins, ry, rx))
             p_ms = _time_ms(torch, lambda: extract_regions_ref(stack, origins, ry, rx))
-            timings[label] = (k_ms, p_ms)
-            mb = 2 * n * ry * rx * 4 / 1e6
+            l_ms = _time_ms(torch, lambda: stack[:, rows[:, :, None], cols[:, None, :]])
+            _check(torch.equal(stack[:, rows[:, :, None], cols[:, None, :]].permute(1, 0, 2, 3),
+                               want), f"the library call equals the kernel at {label}")
+            placed = torch.stack([ox, oy], dim=1)
+            nbytes = 4 * (_distinct_pixels(torch, placed, 0, hp, wp, ry, rx) + n * ry * rx) + 8 * n
+            bound, bound_by = _bound_ms(nbytes, 0.0)
+            timings[label] = {"ms": k_ms, "plain_ms": p_ms, "library_ms": l_ms,
+                              "bound_ms": bound, "bound_by": bound_by}
             _log(f"time {label}: kernel {k_ms * 1e3:.1f} us  plain {p_ms * 1e3:.1f} us  "
-                 f"({mb:.2f} MB moved, {mb / 1e3 / (k_ms / 1e3):.1f} GB/s by the kernel)")
+                 f"library {l_ms * 1e3:.1f} us  bound {bound * 1e3:.2f} us ({bound_by}: "
+                 f"{nbytes / 1e6:.2f} MB, {nbytes / 1e3 / (k_ms / 1e3) / 1e6:.1f} GB/s by the "
+                 f"kernel)")
         _log(f"check {label}: [{n}, 1, {ry}, {rx}] from [1, {hp}, {wp}] bitwise equal")
 
-    # ---- 4. the main path
+    # ---- 3b. the LK level-pass kernel against its plain version
     cfg = load_config("kitti00")
     world = SyntheticStereoSequence(
         cam=cfg.camera, n_frames=N_FRAMES, shape=IMAGE_SHAPE, n_points=4000, seed=0,
         speed=0.8, yaw_rate=0.003,
     )
-    extract_regions.launches = 0
+    lk_record = _lk_level_check(torch, cfg, world, dev)
+
+    # ---- 4. the main path
+    _zero_launches()
     t0 = time.perf_counter()
     run = run_vo(world, cfg, device=dev)
     wall_s = time.perf_counter() - t0
-    launches = extract_regions.launches
+    launches = _launches()
 
     stats = run.frame_stats
     for s in stats:
@@ -599,8 +846,6 @@ def main() -> int:
          f"step ms p50 {statistics.median(step_ms):.1f} max {max(step_ms):.1f}")
     _log(f"keyframes {int(kf.sum())}, aligned keyframe ATE rmse {ate_kf['rmse']:.4f} m "
          f"(bound {ATE_BOUND_M} m), all-frames ATE rmse {run.ate['rmse']:.4f} m")
-    _log(f"extract_regions launches {launches} over {lk_passes} LK level passes "
-         f"and {int(kf.sum())} keyframes")
 
     _check(len(run.poses) == N_FRAMES, f"{len(run.poses)} poses")
     _check(bool(np.all(np.isfinite(run.poses))), "non-finite pose")
@@ -608,7 +853,7 @@ def main() -> int:
     tracked = [s["num_tracked"] for s in steps]
     _check(statistics.median(tracked) > 50, f"median tracked count of {tracked}")
     _check(all(s["pnp_ok"] for s in stats), "PnP failed on an accepted frame")
-    _check(launches >= 2 * lk_passes > 0, f"{launches} launches for {lk_passes} LK passes")
+    _check_launches("main path", launches, lk_passes, int(kf.sum()))
     _check(ate_kf["rmse"] < ATE_BOUND_M, f"keyframe ATE {ate_kf}")
     phase_launches = {"main_path": launches}
 
@@ -630,18 +875,26 @@ def main() -> int:
 
     _log("launches per phase: " + json.dumps(phase_launches)
          + " (phase 7 runs in a child process: not counted)")
-    launches = sum(phase_launches.values())
 
-    k_ms, p_ms = timings[HEADLINE]
+    def total(name):
+        return sum(p[name] for p in phase_launches.values())
+
     print(json.dumps({"kernels": [{
         "name": "extract_regions",
         "route": "cuda",
         "source": "stereo_vo_tpu_torch/csrc/extract_regions.cu",
         "replaces": "stereo_vo_tpu/ops/pallas_extract.py:107 and :168",
-        "launches": launches,
+        "launches": total("extract_regions"),
         "max_abs_err": max_err,
-        "ms": k_ms,
-        "plain_ms": p_ms,
+        **timings[HEADLINE],
+    }, {
+        "name": "lk_level_pass",
+        "route": "cuda",
+        "source": "stereo_vo_tpu_torch/csrc/lk_level.cu",
+        "replaces": "stereo_vo_tpu/ops/pallas_extract.py:168 with stereo_vo_tpu/ops/lk.py:182",
+        "launches": total("lk_level_pass"),
+        **lk_record,
+        "library_ms": None,
     }]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

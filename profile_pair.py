@@ -1,0 +1,85 @@
+#!/usr/bin/env python3
+"""Paired profile of the port's streamed replay on one GPU: the
+``stereo_vo_tpu_torch`` of this checkout against the one of another tree of
+the repository (an earlier commit), in one call.
+
+    git archive <commit> | tar -x -C <dir>    # a directory .gitignore lists
+    python3 profile_pair.py <dir>
+
+Host speed drifts within a call, so the trees run in turns old, new, new,
+old, each in a child process that puts its tree first on ``sys.path``. A turn
+renders the 129-frame synthetic world of ``chip_smoke.py`` phase 5, runs this
+checkout's ``utils/profiling.py::profile_replay`` on that tree's package
+(frames 65-72 profiled, 49-80 timed), then the chunked replay
+(``run_vo(chunk_size=64, preload_device=True)``), and prints one JSON line.
+Each tree builds its own kernels at first use. Exits non-zero without a CUDA
+device or when a turn fails.
+"""
+
+from __future__ import annotations
+
+import importlib.util
+import json
+import os
+import subprocess
+import sys
+
+HERE = os.path.dirname(os.path.abspath(__file__))
+TURNS = ("old", "new", "new", "old")
+
+
+def _turn(tree: str) -> None:
+    sys.path.insert(0, tree)
+    import torch
+
+    import stereo_vo_tpu_torch
+    from stereo_vo_tpu_torch.core.config import load_config
+    from stereo_vo_tpu_torch.data.synthetic import SyntheticStereoSequence
+    from stereo_vo_tpu_torch.engine.driver import run_vo
+
+    path = os.path.join(HERE, "stereo_vo_tpu_torch", "utils", "profiling.py")
+    spec = importlib.util.spec_from_file_location("_profiling_here", path)
+    profiling = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(profiling)
+
+    cfg = load_config("kitti00")
+    world = SyntheticStereoSequence(cam=cfg.camera, n_frames=129, shape=(376, 1241),
+                                    n_points=4000, seed=0, speed=0.8, yaw_rate=0.003)
+    frames = list(world)
+    dev = torch.device("cuda:0")
+    row = profiling.profile_replay(cfg, frames, dev)
+    run = run_vo(iter(frames), cfg, chunk_size=64, preload_device=True, device=dev)
+    print(json.dumps({"package": os.path.dirname(stereo_vo_tpu_torch.__file__),
+                      "chunked_frames_per_s": run.frames_per_sec, **row}), flush=True)
+
+
+def main(argv) -> int:
+    if len(argv) == 2 and argv[0] == "--turn":
+        _turn(os.path.abspath(argv[1]))
+        return 0
+    if len(argv) != 1:
+        print(__doc__, file=sys.stderr)
+        return 2
+    import torch
+
+    if not torch.cuda.is_available():
+        print("profile_pair: no CUDA device is available", file=sys.stderr)
+        return 1
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True, text=True)
+    print(smi.stdout.strip(), flush=True)
+    trees = {"old": os.path.abspath(argv[0]), "new": HERE}
+    for turn, label in enumerate(TURNS):
+        proc = subprocess.run([sys.executable, os.path.abspath(__file__), "--turn",
+                               trees[label]], capture_output=True, text=True, timeout=900)
+        if proc.returncode != 0:
+            print(f"profile_pair: turn {turn} ({label}) failed:\n{proc.stderr[-4000:]}",
+                  file=sys.stderr)
+            return 1
+        row = json.loads(proc.stdout.strip().splitlines()[-1])
+        print(json.dumps({"turn": turn, "tree": label, **row}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main(sys.argv[1:]))

@@ -1,8 +1,8 @@
 """Typed configuration tree (counterpart of ``stereo_vo_tpu/core/config.py``).
 
 The same frozen dataclasses with the same defaults. ``load_config`` reads the
-camera YAMLs bundled with the JAX package (``stereo_vo_tpu/configs/``) by path,
-so both packages share one source of truth, and parses them with a small
+camera YAMLs in this package's own ``configs/`` (byte-for-byte copies of the
+JAX package's, which a test holds equal) and parses them with a small
 parser of its own (``key: value`` lines, ``#`` comments, quoted strings and one
 level of ``frontend:`` / ``backend:`` / ``runtime:`` sections) so the port
 needs no YAML library. Anything else in a file raises ``ValueError``.
@@ -20,10 +20,7 @@ from typing import Optional
 
 from stereo_vo_tpu_torch.core.camera import CameraInfo
 
-CONFIG_DIR = os.path.join(
-    os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__)))),
-    "stereo_vo_tpu", "configs",
-)
+CONFIG_DIR = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "configs")
 
 
 @dataclasses.dataclass(frozen=True)

@@ -74,7 +74,7 @@ def run_vo(
     save_world_points: bool = False,
     progress: bool = False,
     engine: Optional[VOEngine] = None,
-    device="cpu",
+    device="cuda",
 ) -> VORun:
     """Run the full VO pipeline over a stereo stream.
 
@@ -95,7 +95,7 @@ def run_vo(
 
     ``engine`` reuses an already-built ``VOEngine`` (a live source must not
     pay the first-frame warm-up mid-stream); otherwise one is built on
-    ``device``.
+    ``device`` (``cuda`` unless the caller passes ``device="cpu"``).
     """
     it = iter(drop_gate(stream, config.runtime.drop_time) if apply_drop_gate else stream)
 

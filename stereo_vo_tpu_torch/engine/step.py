@@ -124,13 +124,14 @@ def _stereo_weight(fb: float, z: torch.Tensor, sigma_d: float) -> torch.Tensor:
 
 
 class VOEngine:
-    """Bootstrap/step functions closed over one config, image shape and device.
+    """Bootstrap/step functions closed over one config, image shape and device
+    (``cuda`` unless the caller passes ``device="cpu"``).
 
     TF32 is switched off for both matmuls and cuDNN: the port matches the
     reference in float32."""
 
     def __init__(self, config: PipelineConfig, image_shape: Tuple[int, int],
-                 device="cpu"):
+                 device="cuda"):
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
         self.config = config

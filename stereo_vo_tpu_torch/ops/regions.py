@@ -12,8 +12,9 @@ On a CUDA tensor it launches the hand-written kernel
 ``csrc/extract_regions.cu`` (the port of the TPU kernels in
 ``stereo_vo_tpu/ops/pallas_extract.py``) and raises if it cannot; it never
 falls back. On a CPU tensor it runs the plain PyTorch version
-``extract_regions_ref``. LK (two calls per pyramid level pass) and sparse
-StereoBM (two per keyframe) both call this module.
+``extract_regions_ref``. Sparse StereoBM calls it (two calls per keyframe);
+LK stages its regions inside its own level-pass kernel (``ops/lk.py``), and
+its plain version copies them with ``extract_regions_ref`` and ``pad_edge``.
 """
 
 from __future__ import annotations

@@ -9,6 +9,10 @@ CPU, where there are no kernels, the self CPU time of each operator.
         engine.step(state, left, right)
     for ms, name in summarize_trace(prof):
         print(ms, name)
+
+``profile_replay`` profiles a window of streamed steps on the card: kernel
+launches, synchronizations and device time per frame, the device launches of
+the port's hand-written kernels, step and ``track_step`` latency.
 """
 
 from __future__ import annotations
@@ -16,6 +20,7 @@ from __future__ import annotations
 import collections
 import contextlib
 import os
+import statistics
 import time
 from typing import Dict, List, Optional, Tuple
 
@@ -83,3 +88,91 @@ def summarize_trace(prof, top: int = 20) -> List[Tuple[float, str]]:
     for name, us in times:
         by_name[name] += us
     return [(round(us / 1000, 3), name) for name, us in by_name.most_common(top) if us > 0]
+
+
+def runtime_calls(prof) -> Dict[str, int]:
+    """Host-side CUDA runtime calls in a profile: ``launches`` (kernel
+    launches) and ``syncs`` (calls that wait for the device)."""
+    calls = {"launches": 0, "syncs": 0}
+    for e in prof.key_averages():
+        if e.key in ("cudaLaunchKernel", "cuLaunchKernel", "cudaLaunchKernelExC",
+                     "cuLaunchKernelEx"):
+            calls["launches"] += e.count
+        elif "Synchronize" in e.key:
+            calls["syncs"] += e.count
+    return calls
+
+
+# PERF.md section 5 profiles the steps of frames PROFILED_FRAMES[0] ..
+# PROFILED_FRAMES[1] - 1 of a streamed replay and times the unprofiled steps of
+# CRUISE_FRAMES around them (frames 65-72 and 49-80: hinted cruise frames of
+# the 129-frame synthetic world)
+PROFILED_FRAMES = (65, 73)
+CRUISE_FRAMES = (49, 81)
+
+# device function names of the port's hand-written kernels (csrc/*.cu)
+PORT_KERNELS = ("lk_level_kernel", "extract_regions_kernel")
+
+
+def profile_replay(cfg, frames, device) -> dict:
+    """Stream ``frames`` (``StereoFrame``s, at least ``CRUISE_FRAMES[1]``)
+    through a fresh ``VOEngine`` on ``device`` (a CUDA device) and profile
+    the steps of ``PROFILED_FRAMES`` with ``torch.profiler``.
+
+    Returns per-frame ``launches``, ``syncs`` and ``device_ms`` over the
+    profiled frames, the device launches there of each of ``PORT_KERNELS``
+    (read from the trace, not from the wrappers' counters), and, over the
+    unprofiled steps of ``CRUISE_FRAMES``, the step wall p50 and the p50 of
+    one extra synchronized ``track_step`` per frame (its result discarded),
+    both in ms."""
+    import torch
+    from torch.autograd import DeviceType
+
+    from stereo_vo_tpu_torch.engine.step import VOEngine, parse_summary
+    from stereo_vo_tpu_torch.frontend.track import track_step
+    from stereo_vo_tpu_torch.ops.pyramid import build_pyramid
+
+    engine = VOEngine(cfg, frames[0].left.shape, device=device)
+    state, _ = engine.bootstrap(engine.init_state(), frames[0].left, frames[0].right)
+    step_ms, track_ms, hinted = [], [], []
+
+    def advance(state, f, timed):
+        if timed:
+            pyr = build_pyramid(engine._image(f.left), cfg.frontend.lk_max_level)
+            torch.cuda.synchronize(device)
+            t0 = time.perf_counter()
+            track_step(state.tracker, tuple(pyr), cfg.frontend)
+            torch.cuda.synchronize(device)
+            track_ms.append(1e3 * (time.perf_counter() - t0))
+        t0 = time.perf_counter()
+        state, out = engine.step(state, f.left, f.right)
+        row = parse_summary(out.summary)[1]
+        torch.cuda.synchronize(device)
+        if timed:
+            step_ms.append(1e3 * (time.perf_counter() - t0))
+            hinted.append(row["hinted"])
+        return state
+
+    first, end = PROFILED_FRAMES
+    for i in range(1, first):
+        state = advance(state, frames[i], i >= CRUISE_FRAMES[0])
+    with device_trace() as prof:
+        for i in range(first, end):
+            state = advance(state, frames[i], False)
+    for i in range(end, CRUISE_FRAMES[1]):
+        state = advance(state, frames[i], True)
+    n = end - first
+    calls = runtime_calls(prof)
+    device_ms = sum(ms for ms, _ in summarize_trace(prof, top=100000))
+    kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    return {
+        "frames": [first, end],
+        "launches_per_frame": calls["launches"] / n,
+        "syncs_per_frame": calls["syncs"] / n,
+        "device_ms_per_frame": device_ms / n,
+        "kernel_launches": {name: sum(e.count for e in kernels if name in e.key)
+                            for name in PORT_KERNELS},
+        "step_ms_p50": statistics.median(step_ms),
+        "track_step_ms_p50": statistics.median(track_ms),
+        "hinted_share": sum(hinted) / len(hinted),
+    }

@@ -28,10 +28,16 @@ from stereo_vo_tpu.engine.step import VOEngine as JVOEngine
 from stereo_vo_tpu_torch.data.synthetic import SyntheticStereoSequence
 from stereo_vo_tpu_torch.engine.checkpoint import load_state, save_state
 from stereo_vo_tpu_torch.engine.convert import state_to_numpy
-from stereo_vo_tpu_torch.engine.driver import run_vo
-from stereo_vo_tpu_torch.engine.step import VOEngine
 
-from torch_port_helpers import assert_close, assert_equal, port_camera, port_config, to_jax
+from torch_port_helpers import (
+    assert_close,
+    assert_equal,
+    cpu_engine,
+    cpu_run_vo,
+    port_camera,
+    port_config,
+    to_jax,
+)
 
 JCAM = JCameraInfo(focal=400.0, cx=160.0, cy=120.0, baseline=0.5)
 SHAPE = (240, 320)
@@ -68,14 +74,14 @@ def chunked_run(frames, tmp_path_factory):
     """13 frames, chunks of 4, checkpoint every 7: the checkpoint lands on the
     chunk boundary after frame 8 (resume index 9)."""
     out = str(tmp_path_factory.mktemp("chunked"))
-    run = run_vo(iter(frames), port_config(_config()), chunk_size=4, checkpoint_every=7,
+    run = cpu_run_vo(iter(frames), port_config(_config()), chunk_size=4, checkpoint_every=7,
                  out_dir=out)
     return run, out
 
 
 def test_jax_checkpoint_loads_in_port(jax_bootstrap_ckpt):
     path, jax_leaves = jax_bootstrap_ckpt
-    state, next_idx = load_state(path, VOEngine(port_config(_config()), SHAPE))
+    state, next_idx = load_state(path, cpu_engine(port_config(_config()), SHAPE))
     assert next_idx == 1
     got = state_to_numpy(state)
     assert len(got) == len(jax_leaves)
@@ -87,7 +93,7 @@ def test_jax_checkpoint_loads_in_port(jax_bootstrap_ckpt):
 
 def test_port_checkpoint_loads_in_jax(frames, tmp_path):
     cfg = port_config(_config())
-    engine = VOEngine(cfg, SHAPE)
+    engine = cpu_engine(cfg, SHAPE)
     state, _ = engine.bootstrap(engine.init_state(), frames[0].left, frames[0].right)
     for f in frames[1:4]:
         state, _ = engine.step(state, f.left, f.right)
@@ -113,7 +119,7 @@ def test_load_state_checks_leaves(jax_bootstrap_ckpt, tmp_path, fault):
     bad = str(tmp_path / "bad.npz")
     np.savez(bad, **arrays)
     with pytest.raises(ValueError, match="leaf 5"):
-        load_state(bad, VOEngine(port_config(_config()), SHAPE))
+        load_state(bad, cpu_engine(port_config(_config()), SHAPE))
 
 
 def test_port_resumes_from_jax_checkpoint(frames, jax_bootstrap_ckpt):
@@ -121,8 +127,8 @@ def test_port_resumes_from_jax_checkpoint(frames, jax_bootstrap_ckpt):
     trajectory stays with the port's own straight run (the two bootstrap
     states differ by f32 rounding only)."""
     cfg = port_config(_config())
-    run = run_vo(iter(frames[:6]), cfg, resume_from=jax_bootstrap_ckpt[0])
-    straight = run_vo(iter(frames[:6]), cfg)
+    run = cpu_run_vo(iter(frames[:6]), cfg, resume_from=jax_bootstrap_ckpt[0])
+    straight = cpu_run_vo(iter(frames[:6]), cfg)
     assert [s["frame"] for s in run.frame_stats] == [1, 2, 3, 4, 5]
     assert np.isfinite(run.poses).all()
     assert [s["is_keyframe"] for s in run.frame_stats] == \
@@ -133,11 +139,11 @@ def test_port_resumes_from_jax_checkpoint(frames, jax_bootstrap_ckpt):
 def test_streamed_resume_is_bitwise(frames, tmp_path):
     cfg = port_config(_config())
     out = str(tmp_path / "a")
-    run_a = run_vo(iter(frames[:12]), cfg, out_dir=out, checkpoint_every=7)
+    run_a = cpu_run_vo(iter(frames[:12]), cfg, out_dir=out, checkpoint_every=7)
     ckpt = os.path.join(out, "checkpoint.npz")
-    _, next_idx = load_state(ckpt, VOEngine(cfg, SHAPE))
+    _, next_idx = load_state(ckpt, cpu_engine(cfg, SHAPE))
     assert next_idx == 7
-    run_b = run_vo(iter(frames[:12]), cfg, resume_from=ckpt)
+    run_b = cpu_run_vo(iter(frames[:12]), cfg, resume_from=ckpt)
     assert [s["frame"] for s in run_b.frame_stats] == list(range(7, 12))
     assert_equal(run_b.poses, run_a.poses[7:], "resumed poses")
     assert run_b.frame_stats == run_a.frame_stats[7:]
@@ -146,9 +152,9 @@ def test_streamed_resume_is_bitwise(frames, tmp_path):
 def test_chunked_resume_reproduces_tail(frames, chunked_run):
     run_a, out = chunked_run
     ckpt = os.path.join(out, "checkpoint.npz")
-    _, next_idx = load_state(ckpt, VOEngine(port_config(_config()), SHAPE))
+    _, next_idx = load_state(ckpt, cpu_engine(port_config(_config()), SHAPE))
     assert next_idx == 9
-    run_b = run_vo(iter(frames), port_config(_config()), chunk_size=4, resume_from=ckpt)
+    run_b = cpu_run_vo(iter(frames), port_config(_config()), chunk_size=4, resume_from=ckpt)
     assert len(run_b.chunk_seconds) == 1
     assert [s["frame"] for s in run_b.frame_stats] == [9, 10, 11, 12]
     assert_equal(run_b.poses, run_a.poses[9:], "resumed poses")

@@ -6,6 +6,7 @@ values, rtol 1e-6 elsewhere); configs must be equal field by field.
 """
 
 import dataclasses
+import os
 
 import numpy as np
 import pytest
@@ -15,7 +16,9 @@ from stereo_vo_tpu.core.camera import CameraInfo as JCameraInfo
 from stereo_vo_tpu.core.config import available_configs, load_config as jax_load_config
 
 from stereo_vo_tpu_torch.core import geometry as tgeo
-from stereo_vo_tpu_torch.core.config import load_config, parse_config_yaml
+import stereo_vo_tpu
+import stereo_vo_tpu_torch
+from stereo_vo_tpu_torch.core.config import CONFIG_DIR, load_config, parse_config_yaml
 
 from torch_port_helpers import assert_close, port_camera, to_jax, to_torch
 
@@ -115,3 +118,19 @@ def test_config_overrides_and_parser_errors(tmp_path):
                 "  stray: 1\n", "unknown_section:\n  a: 1\n", "key value\n"):
         with pytest.raises(ValueError):
             parse_config_yaml(bad)
+
+
+def test_config_dir_is_the_ports_own():
+    """The port reads its YAMLs from its own package directory (the no-JAX
+    source scan cannot see a path into the JAX package)."""
+    pkg = os.path.dirname(os.path.abspath(stereo_vo_tpu_torch.__file__))
+    assert os.path.commonpath([os.path.abspath(CONFIG_DIR), pkg]) == pkg
+    assert os.path.isdir(CONFIG_DIR)
+
+
+@pytest.mark.parametrize("name", sorted(available_configs()))
+def test_config_yaml_is_a_copy_of_the_reference(name):
+    jax_dir = os.path.join(os.path.dirname(os.path.abspath(stereo_vo_tpu.__file__)), "configs")
+    with open(os.path.join(CONFIG_DIR, name + ".yaml"), "rb") as got, \
+            open(os.path.join(jax_dir, name + ".yaml"), "rb") as want:
+        assert got.read() == want.read()

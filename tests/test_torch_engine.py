@@ -15,6 +15,7 @@ port's isolation from JAX.
   and ``eval`` has a counterpart in the port.
 """
 
+import inspect
 import os
 import re
 import subprocess
@@ -41,6 +42,8 @@ from stereo_vo_tpu_torch.ops.pyramid import build_pyramid
 from torch_port_helpers import (
     assert_close,
     assert_equal,
+    cpu_engine,
+    cpu_run_vo,
     jax_pnp_indices,
     port_camera,
     port_config,
@@ -100,6 +103,13 @@ def _kf_ate(poses, gt, stats):
     return absolute_trajectory_error(poses[kf], gt[kf], align=False)["rmse"], int(kf.sum())
 
 
+def test_entry_points_default_to_cuda():
+    """``VOEngine`` and ``run_vo`` run on the card unless asked for the CPU."""
+    assert VOEngine(port_config(_config()), SHAPE).device.type == "cuda"
+    assert inspect.signature(run_vo).parameters["device"].default == "cuda"
+    assert cpu_engine(port_config(_config()), SHAPE).device.type == "cpu"
+
+
 def test_state_round_trip(jax_state_at_step):
     cfg = port_config(_config())
     leaves = [np.asarray(x) for x in jax.tree.leaves(jax_state_at_step)]
@@ -118,7 +128,7 @@ def test_step_parity_from_reference_state(world, jax_engine, jax_state_at_step):
     cfg_t = port_config(cfg_j)
     left, right = world.render(STEP_FRAME)
     jstate, jout = jax_engine.step(jax_state_at_step, to_jax(left), to_jax(right))
-    engine = VOEngine(cfg_t, SHAPE)
+    engine = cpu_engine(cfg_t, SHAPE)
     tstate0 = state_from_numpy([np.asarray(x) for x in jax.tree.leaves(jax_state_at_step)],
                                cfg_t, SHAPE)
     # the reference's PnP samples for this frame: its jax.random draw over the
@@ -156,7 +166,7 @@ def test_step_parity_from_reference_state(world, jax_engine, jax_state_at_step):
 def test_end_to_end_ate_matches_reference(world, jax_run):
     cfg = port_config(_config())
     twin = TSynthetic(cam=port_camera(JCAM), **_world_kwargs())
-    run = run_vo(twin, cfg)
+    run = cpu_run_vo(twin, cfg)
     assert len(run.poses) == N_FRAMES and np.all(np.isfinite(run.poses))
     assert all(s["pnp_ok"] for s in run.frame_stats)
     ate, n_kf = _kf_ate(run.poses, world.gt_poses, run.frame_stats)
@@ -175,7 +185,7 @@ def test_port_sources_import_no_jax():
                if f.endswith(".py")]
     assert len(sources) > 20
     offenders = []
-    for path in sources + [os.path.join(REPO, "chip_smoke.py")]:
+    for path in sources + [os.path.join(REPO, f) for f in ("chip_smoke.py", "profile_pair.py")]:
         with open(path) as f:
             offenders += [f"{path}: {m.group(0).strip()}" for m in banned.finditer(f.read())]
     assert not offenders, offenders
@@ -200,15 +210,16 @@ def test_port_runs_without_jax(tmp_path):
         "    parallax_thresh=6.0), backend=BackendConfig(feature_capacity=256,\n"
         "    landmark_capacity=512))\n"
         "w = SyntheticStereoSequence(cam=cam, n_frames=4, shape=(120, 160), n_points=300, seed=2)\n"
-        f"run = run_vo(w, cfg, out_dir={str(tmp_path)!r})\n"
+        f"run = run_vo(w, cfg, out_dir={str(tmp_path)!r}, device='cpu')\n"
         "assert len(run.poses) == 4\n"
         "frames = list(SyntheticStereoSequence(cam=cam, n_frames=7, shape=(120, 160),\n"
         "    n_points=300, seed=2))\n"
         f"ckpt_dir = {str(tmp_path / 'chunked')!r}\n"
         "run = run_vo(iter(frames), cfg, chunk_size=3, preload_device=True, checkpoint_every=4,\n"
-        "    out_dir=ckpt_dir)\n"
+        "    out_dir=ckpt_dir, device='cpu')\n"
         "assert len(run.poses) == 7 and len(run.chunk_seconds) == 2 and run.preload_misses == 0\n"
-        "tail = run_vo(iter(frames), cfg, chunk_size=3, resume_from=ckpt_dir + '/checkpoint.npz')\n"
+        "tail = run_vo(iter(frames), cfg, chunk_size=3, resume_from=ckpt_dir + '/checkpoint.npz',\n"
+        "    device='cpu')\n"
         "assert [s['frame'] for s in tail.frame_stats] == [4, 5, 6]\n"
         "assert (tail.poses == run.poses[4:]).all()\n"
         "assert 'jax' not in sys.modules, 'jax was imported'\n"

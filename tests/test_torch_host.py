@@ -30,12 +30,18 @@ from stereo_vo_tpu_torch.core.config import load_config
 from stereo_vo_tpu_torch.data import kitti, native_loader
 from stereo_vo_tpu_torch.data.stream import LiveStereoStream
 from stereo_vo_tpu_torch.data.synthetic import SyntheticStereoSequence
-from stereo_vo_tpu_torch.engine.driver import run_vo, write_world_points
-from stereo_vo_tpu_torch.engine.step import VOEngine
+from stereo_vo_tpu_torch.engine.driver import write_world_points
 from stereo_vo_tpu_torch.eval import viz
 from stereo_vo_tpu_torch.utils.profiling import StageTimer, device_trace, summarize_trace
 
-from torch_port_helpers import SMALL_CONFIG_YAML, assert_close, assert_equal, write_kitti_sequence
+from torch_port_helpers import (
+    SMALL_CONFIG_YAML,
+    assert_close,
+    assert_equal,
+    cpu_engine,
+    cpu_run_vo,
+    write_kitti_sequence,
+)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 FIXTURES = os.path.join(REPO, "tests", "fixtures")
@@ -208,7 +214,7 @@ def test_live_stream_through_run_vo(small_frames):
 
     t = threading.Thread(target=produce)
     t.start()
-    run = run_vo(s, cfg)
+    run = cpu_run_vo(s, cfg)
     t.join(timeout=30)
     assert not t.is_alive()
     assert s.dropped == 1
@@ -265,7 +271,7 @@ def test_plot_trajectory(monkeypatch, tmp_path):
 
 def test_world_points_file_format(small_frames, tmp_path):
     cfg, frames = small_frames
-    engine = VOEngine(cfg, (240, 320))
+    engine = cpu_engine(cfg, (240, 320))
     state, _ = engine.bootstrap(engine.init_state(), frames[0].left, frames[0].right)
     path = str(tmp_path / "points.txt")
     write_world_points(path, state.window)
@@ -400,3 +406,18 @@ def test_stage_timer_and_trace_summary(tmp_path):
     assert [ms for ms, _ in rows] == sorted((ms for ms, _ in rows), reverse=True)
     assert any("mm" in name for _, name in rows)
     assert (tmp_path / "trace" / "trace.json").exists()
+
+
+def test_profile_pair_refuses_without_the_device():
+    """``profile_pair.py`` prints its usage (exit 2) without exactly one tree
+    and exits 1 before running a turn when no CUDA device is present."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    script = os.path.join(REPO, "profile_pair.py")
+    usage = subprocess.run([sys.executable, script], capture_output=True, text=True,
+                           timeout=120)
+    assert usage.returncode == 2 and "profile_pair.py <dir>" in usage.stderr
+    proc = subprocess.run([sys.executable, script, REPO], capture_output=True, text=True,
+                          timeout=120)
+    assert proc.returncode == 1 and "no CUDA device" in proc.stderr
+    assert proc.stdout == ""

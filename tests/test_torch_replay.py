@@ -29,12 +29,19 @@ from stereo_vo_tpu.ops.pyramid import build_pyramid as jax_build_pyramid
 
 from stereo_vo_tpu_torch.data.stream import StereoFrame
 from stereo_vo_tpu_torch.data.synthetic import SyntheticStereoSequence as TSynthetic
-from stereo_vo_tpu_torch.engine.driver import run_vo
-from stereo_vo_tpu_torch.engine.step import VOEngine
 from stereo_vo_tpu_torch.ops import shi_tomasi as tst
 from stereo_vo_tpu_torch.ops.pyramid import build_pyramid
 
-from torch_port_helpers import assert_close, assert_equal, port_camera, port_config, to_jax, to_torch
+from torch_port_helpers import (
+    assert_close,
+    assert_equal,
+    cpu_engine,
+    cpu_run_vo,
+    port_camera,
+    port_config,
+    to_jax,
+    to_torch,
+)
 
 JCAM = JCameraInfo(focal=400.0, cx=160.0, cy=120.0, baseline=0.5)
 SHAPE = (240, 320)
@@ -65,12 +72,12 @@ def frames():
 
 @pytest.fixture(scope="module")
 def streamed(frames):
-    return run_vo(iter(frames), port_config(_config()))
+    return cpu_run_vo(iter(frames), port_config(_config()))
 
 
 @pytest.fixture(scope="module")
 def chunked(frames):
-    return run_vo(iter(frames), port_config(_config()), chunk_size=CHUNK, preload_device=True)
+    return cpu_run_vo(iter(frames), port_config(_config()), chunk_size=CHUNK, preload_device=True)
 
 
 def _kf(run):
@@ -94,7 +101,7 @@ def test_chunked_equals_streamed(streamed, chunked):
 
 def test_tail_shorter_than_a_chunk_goes_through_step(frames, streamed):
     """12 frames: bootstrap, two chunks of 4, and a 3-frame tail of steps."""
-    run = run_vo(iter(frames[:12]), port_config(_config()), chunk_size=CHUNK)
+    run = cpu_run_vo(iter(frames[:12]), port_config(_config()), chunk_size=CHUNK)
     assert len(run.chunk_seconds) == 2
     assert len(run.frame_seconds) == 1 + 3
     assert_close(run.poses, streamed.poses[:12], atol=POSE_TOL, what="poses")
@@ -102,7 +109,7 @@ def test_tail_shorter_than_a_chunk_goes_through_step(frames, streamed):
 
 
 def test_max_frames_with_preload(frames, streamed):
-    run = run_vo(iter(frames), port_config(_config()), chunk_size=CHUNK,
+    run = cpu_run_vo(iter(frames), port_config(_config()), chunk_size=CHUNK,
                  preload_device=True, max_frames=10)
     assert len(run.poses) == 10 and run.preload_misses == 0
     assert_close(run.poses, streamed.poses[:10], atol=POSE_TOL, what="poses")
@@ -110,7 +117,7 @@ def test_max_frames_with_preload(frames, streamed):
 
 def test_replay_chunk_returns_stacked_outputs(frames):
     cfg = port_config(_config())
-    engine = VOEngine(cfg, SHAPE)
+    engine = cpu_engine(cfg, SHAPE)
     state, _ = engine.bootstrap(engine.init_state(), frames[0].left, frames[0].right)
     lefts = np.stack([f.left for f in frames[1:4]])
     rights = np.stack([f.right for f in frames[1:4]])
@@ -170,12 +177,12 @@ def test_preload_survives_late_bootstrap(frames):
                         stamp=i / 11.0, index=i) for i in range(3)]
     seq = dark + [dataclasses.replace(f, index=i + 3, stamp=(i + 3) / 11.0)
                   for i, f in enumerate(frames[:9])]
-    run = run_vo(iter(seq), cfg, chunk_size=CHUNK, preload_device=True)
+    run = cpu_run_vo(iter(seq), cfg, chunk_size=CHUNK, preload_device=True)
     assert run.preload_misses == 0
     assert len(run.poses) == len(seq) and np.isfinite(run.poses).all()
     kf = np.array(_kf(run))
     assert not kf[:3].any() and kf[3]
     assert len(run.chunk_seconds) == 2
-    ref = run_vo(iter(seq), cfg, chunk_size=CHUNK)
+    ref = cpu_run_vo(iter(seq), cfg, chunk_size=CHUNK)
     assert ref.preload_misses == 0
     assert_close(run.poses, ref.poses, atol=POSE_TOL, what="poses")

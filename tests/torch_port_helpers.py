@@ -78,6 +78,20 @@ def port_config(jax_cfg):
     )
 
 
+def cpu_engine(config, image_shape):
+    """The port's ``VOEngine`` on the CPU (its default device is ``cuda``)."""
+    from stereo_vo_tpu_torch.engine.step import VOEngine
+
+    return VOEngine(config, image_shape, device="cpu")
+
+
+def cpu_run_vo(stream, config, **kwargs):
+    """The port's ``run_vo`` on the CPU (its default device is ``cuda``)."""
+    from stereo_vo_tpu_torch.engine.driver import run_vo
+
+    return run_vo(stream, config, device="cpu", **kwargs)
+
+
 def port_camera(jax_cam):
     from stereo_vo_tpu_torch.core.camera import CameraInfo
 
