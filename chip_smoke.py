@@ -9,9 +9,10 @@ JAX or of the JAX package. Phases, each fatal on failure:
 
 1. device: print the card (``nvidia-smi`` name and power limit) and the
    CUDA version; switch TF32 off;
-2. build: compile both CUDA sources, ``stereo_vo_tpu_torch/csrc/
-   extract_regions.cu`` and ``lk_level.cu``, one nvcc each, started
-   together, and print each build's seconds and what ptxas reports;
+2. build: compile the three CUDA sources, ``stereo_vo_tpu_torch/csrc/
+   extract_regions.cu``, ``lk_level.cu`` and ``stereo_bm_at.cu``, one nvcc
+   each, started together, and print each build's seconds and what ptxas
+   reports;
 3. region-extraction kernel check: the kernel against its plain PyTorch
    version (``extract_regions_ref``) at the shapes the main path gives it,
    bitwise (``torch.equal``: a copy has no rounding), then both and the one
@@ -24,14 +25,28 @@ JAX or of the JAX package. Phases, each fatal on failure:
    88x88, N = 160 and 448), forward and backward role, within the ``LK_*``
    tolerances, both timed, beside the bound from this run's bytes and
    iterations;
+3c. sparse StereoBM kernel check: ``stereo_bm_at`` against
+   ``stereo_bm_at_ref`` on frames 0-1 of phase 4's world and pairs 0-1 of
+   ``tests/fixtures/real``, bitwise (``torch.equal``: uint8 images make
+   every SAD an exact f32 integer), at the main path's slot sets
+   (``BM_SETS``: the bootstrap's 300 detections at full width; a keyframe's
+   748 slots, frame 0's detections then frame 1's standing in for tracked
+   inliers, at <= 320 valid, where the plain version compacts, and with
+   every slot valid, where it does not; all 748 invalid; none), both timed
+   (CUDA events, median of 20 samples), the kernel's device time per call
+   read from ``torch.profiler``, beside the bound from this run's bytes and
+   operations (no one PyTorch call computes sparse BM: no library time);
 4. main path: ``run_vo`` over a 20-frame synthetic KITTI-sized world
    (376x1241, ``kitti00`` intrinsics, default capacities) on ``cuda``, with
    the kernels' launch counters zeroed just before and read just after; it
    checks the poses (20, finite), at least 2 keyframes after bootstrap, the
    median tracked count over the steps (> 50), PnP on every accepted frame,
    exactly one ``lk_level_pass`` launch per LK level pass (forward plus
-   backward) and two ``extract_regions`` launches per keyframe, and the
-   aligned keyframe ATE;
+   backward), exactly one ``stereo_bm_at`` launch per keyframe (bootstrap
+   included) and no ``extract_regions`` launch, and the aligned keyframe
+   ATE; then (4b) ``utils.profiling.profile_keyframes`` streams the same
+   world and profiles steps 8-11: launches, syncs and device ms per keyframe
+   step, the BM kernel's launches in the device trace, step p50;
 5. chunked replay with preload: ``run_vo(chunk_size=64, preload_device=True,
    checkpoint_every=65, out_dir=...)`` on ``cuda`` over the bench's
    129-frame world (bootstrap + two chunks of 64; same parameters as
@@ -56,8 +71,8 @@ JAX or of the JAX package. Phases, each fatal on failure:
 8. single-device options on ``cuda`` at 376x1241 (``kitti00``, default
    capacities): (a) the dense StereoBM on pair 0 of ``tests/fixtures/real``
    and on frame 0 of phase 4's world, sampled at the detected corners, must
-   equal the sparse ``stereo_bm_at`` there (validity identical, values
-   within ``BM_TOL``); (b) forward-only tracking
+   equal the sparse ``stereo_bm_at`` (its kernel) there (validity
+   identical, values within ``BM_TOL``); (b) forward-only tracking
    (``track_step(flow_back=False)``) over phase 4's 19 consecutive pairs,
    each from a fresh ``tracker_init`` on frame t's detections: exactly one
    ``lk_level_pass`` launch per pyramid level per pair, a median tracked count
@@ -81,7 +96,8 @@ Launch counts are zeroed just before, and read just after, each of phases
 counted). The line before the last is the kernels' JSON record, with
 launches summed over phases 4-6 and 8b, the headline shape's times
 (extraction: 160 regions of 56x56 at level 0; LK: the level-0 forward pass,
-56x56, N = 160) and bounds; the last line is ``{"ok": true,
+56x56, N = 160; sparse BM: the 748-slot keyframe input at <= 320 valid on
+the synthetic frame) and bounds; the last line is ``{"ok": true,
 "device": {...}}``. Without a CUDA device, or without the package beside it,
 the script exits non-zero before printing any result.
 """
@@ -179,6 +195,10 @@ LK_OK_SHARE = 0.995             # final ok equal on this share of active feature
 LK_POS_TOL = 0.02               # px, features ok in both
 LK_POS_MEDIAN_TOL = 1e-4        # px, median over features ok in both
 LK_CENTER_RTOL = 1e-4           # relative to max(|c|, 1)
+# phase 3c: the sparse-BM slot sets, and the headline (pair, set)
+BM_SETS = ("bootstrap_n300", "keyframe_n748_le320", "keyframe_n748_all_valid",
+           "all_invalid_n748", "empty_n0")
+BM_HEADLINE = "synthetic keyframe_n748_le320"
 # the card's published rates (H100 SXM): HBM bytes/s and f32 FLOP/s outside
 # the tensor cores
 HBM_BYTES_PER_S = 3.35e12
@@ -235,25 +255,29 @@ def _lk_passes(cfg, steps) -> int:
 def _zero_launches() -> None:
     from stereo_vo_tpu_torch.ops.lk import lk_level_pass
     from stereo_vo_tpu_torch.ops.regions import extract_regions
+    from stereo_vo_tpu_torch.ops.stereo_bm import stereo_bm_at
 
-    lk_level_pass.launches = extract_regions.launches = 0
+    lk_level_pass.launches = stereo_bm_at.launches = extract_regions.launches = 0
 
 
 def _launches() -> dict:
     from stereo_vo_tpu_torch.ops.lk import lk_level_pass
     from stereo_vo_tpu_torch.ops.regions import extract_regions
+    from stereo_vo_tpu_torch.ops.stereo_bm import stereo_bm_at
 
-    return {"lk_level_pass": lk_level_pass.launches, "extract_regions": extract_regions.launches}
+    return {"lk_level_pass": lk_level_pass.launches, "stereo_bm_at": stereo_bm_at.launches,
+            "extract_regions": extract_regions.launches}
 
 
 def _check_launches(what, launches, lk_want, keyframes) -> None:
-    """One kernel launch per LK level pass and two region extractions per
-    keyframe (sparse StereoBM), exactly."""
-    lk, er = launches["lk_level_pass"], launches["extract_regions"]
+    """One kernel launch per LK level pass, one sparse-BM launch per
+    keyframe and no region extraction, exactly."""
+    lk, bm, er = launches["lk_level_pass"], launches["stereo_bm_at"], launches["extract_regions"]
     _log(f"{what}: lk_level_pass launches {lk} for {lk_want} LK level passes, "
-         f"extract_regions launches {er} for {keyframes} keyframes")
+         f"stereo_bm_at launches {bm} for {keyframes} keyframes, extract_regions launches {er}")
     _check(lk == lk_want > 0, f"{what}: {lk} lk_level_pass launches for {lk_want} passes")
-    _check(er == 2 * keyframes, f"{what}: {er} extract_regions launches for {keyframes} keyframes")
+    _check(bm == keyframes, f"{what}: {bm} stereo_bm_at launches for {keyframes} keyframes")
+    _check(er == 0, f"{what}: {er} extract_regions launches")
 
 
 def _bound_ms(nbytes: float, flops: float):
@@ -413,6 +437,101 @@ def _lk_level_check(torch, cfg, world, dev) -> dict:
             if tag == LK_HEADLINE:
                 head = {"ms": k_ms, "plain_ms": p_ms, "bound_ms": bound, "bound_by": bound_by}
     return {**head, "max_abs_err": max_px}
+
+
+def _bm_slot_sets(torch, cfg, frame0, frame1, dev):
+    """Phase 3c's inputs on one stereo pair: the images and ``{set: (xy,
+    valid, compact_slots)}`` for each of ``BM_SETS``."""
+    from stereo_vo_tpu_torch.frontend.detect import detect_features
+    from stereo_vo_tpu_torch.utils.profiling import keyframe_bm_input
+
+    compact = cfg.frontend.bm_compact_slots
+    left, right, xy, valid = keyframe_bm_input(cfg, frame0, frame1, dev)
+    _, _, xy_all, valid_all = keyframe_bm_input(cfg, frame0, frame1, dev, live=False)
+    det_xy, det_valid = detect_features(left, cfg.frontend)
+    none = torch.zeros_like(valid)
+    return left, right, {
+        "bootstrap_n300": (det_xy, det_valid, 0),
+        "keyframe_n748_le320": (xy, valid, compact),
+        "keyframe_n748_all_valid": (xy_all, valid_all, compact),
+        "all_invalid_n748": (xy, none, compact),
+        "empty_n0": (xy[:0].contiguous(), none[:0].contiguous(), compact),
+    }
+
+
+def _bm_bound(torch, fc, h, w, xy, valid):
+    """Phase 3c's bound: the distinct raw pixels the valid slots read from
+    each image (window and band with the 1-pixel Sobel halo) read once, 9 B
+    in and 4 B out per slot; operations per valid slot: 3 per SAD term, 13
+    per prefiltered pixel, 3 per texture term and the D x block row sums."""
+    d, blk = fc.bm_num_disparities, fc.bm_block_size
+    r = blk // 2
+    xi = xy[valid, 0].to(torch.int64).clamp(0, w - 1)
+    yi = xy[valid, 1].to(torch.int64).clamp(0, h - 1)
+    org_l = torch.stack([xi - r - 1, yi - r - 1], dim=1)
+    org_r = torch.stack([xi - (d - 1) - r - 1, yi - r - 1], dim=1)
+    nbytes = (4 * (_distinct_pixels(torch, org_l, 0, h, w, blk + 2, blk + 2)
+                   + _distinct_pixels(torch, org_r, 0, h, w, blk + 2, d + blk + 1))
+              + 13 * xy.shape[0])
+    per_slot = 3 * d * blk * blk + 13 * blk * (d + 2 * blk - 1) + 3 * blk * blk + d * blk
+    flops = int(valid.sum()) * per_slot
+    return _bound_ms(nbytes, flops) + (nbytes, flops)
+
+
+def _bm_kernel_check(torch, cfg, pairs, dev) -> dict:
+    """Phase 3c: ``stereo_bm_at`` against ``stereo_bm_at_ref`` on the card
+    at ``BM_SETS`` on each ``(label, frame0, frame1)`` of ``pairs``; returns
+    the headline's record and the largest difference."""
+    from stereo_vo_tpu_torch.ops.stereo_bm import stereo_bm_at, stereo_bm_at_ref
+
+    fc = cfg.frontend
+    kw = dict(num_disparities=fc.bm_num_disparities, block_size=fc.bm_block_size,
+              prefilter_cap=fc.bm_prefilter_cap, texture_threshold=fc.bm_texture_threshold,
+              uniqueness_ratio=fc.bm_uniqueness_ratio)
+    max_err, head = 0.0, None
+    for pair, frame0, frame1 in pairs:
+        left, right, sets = _bm_slot_sets(torch, cfg, frame0, frame1, dev)
+        h, w = left.shape
+        for name in BM_SETS:
+            xy, valid, compact = sets[name]
+            tag = f"{pair} {name}"
+            got = stereo_bm_at(left, right, xy, valid, compact_slots=compact, **kw)
+            torch.cuda.synchronize()
+            want = stereo_bm_at_ref(left, right, xy, valid, compact_slots=compact, **kw)
+            _check(got.shape == want.shape and torch.equal(got, want),
+                   f"sparse BM kernel equals the plain version at {tag}")
+            if got.numel():
+                max_err = max(max_err, float((got - want).abs().max()))
+            call = lambda: stereo_bm_at(left, right, xy, valid, compact_slots=compact, **kw)
+            k_ms = _time_ms(torch, call)
+            dev_us = _device_us(torch, call, "stereo_bm_at_kernel")
+            p_ms = _time_ms(torch, lambda: stereo_bm_at_ref(left, right, xy, valid,
+                                                            compact_slots=compact, **kw))
+            bound, bound_by, nbytes, flops = _bm_bound(torch, fc, h, w, xy, valid)
+            _log(f"check bm {tag}: [{xy.shape[0]}] slots, {int(valid.sum())} valid, "
+                 f"{int((want > 0).sum())} with a disparity, bitwise equal; kernel "
+                 f"{k_ms * 1e3:.1f} us per call ({dev_us:.2f} us of it on the device), plain "
+                 f"{p_ms * 1e3:.1f} us, bound {bound * 1e3:.3f} us ({bound_by}: "
+                 f"{nbytes / 1e6:.3f} MB, {flops / 1e6:.2f} MFLOP)")
+            if tag == BM_HEADLINE:
+                head = {"ms": k_ms, "plain_ms": p_ms, "bound_ms": bound, "bound_by": bound_by}
+    return {**head, "max_abs_err": max_err}
+
+
+def _device_us(torch, fn, kernel, calls=10):
+    """Device time of ``kernel`` per call of ``fn``, in us, from the
+    self device time ``torch.profiler`` records over ``calls`` calls."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    return sum(e.self_device_time_total for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA and kernel in e.key) / calls
 
 
 def _time_ms(torch, fn, samples=20, inner=10):
@@ -778,7 +897,7 @@ def main() -> int:
     dev = torch.device("cuda:0")
 
     # ---- 2. build
-    _build_all(cuda_build, ("extract_regions", "lk_level"))
+    _build_all(cuda_build, ("extract_regions", "lk_level", "stereo_bm_at"))
 
     # ---- 3. kernel against its plain version
     gen = torch.Generator(device="cpu").manual_seed(0)
@@ -825,6 +944,15 @@ def main() -> int:
     )
     lk_record = _lk_level_check(torch, cfg, world, dev)
 
+    # ---- 3c. the sparse StereoBM kernel against its plain version
+    from stereo_vo_tpu_torch.data.kitti import KittiSequence
+
+    world_frames = list(world)
+    real = KittiSequence(os.path.join(os.path.dirname(os.path.abspath(__file__)), REAL_ROOT),
+                         REAL_SEQUENCE)
+    bm_record = _bm_kernel_check(torch, cfg, [("synthetic", *world_frames[:2]),
+                                              ("real", real[0], real[1])], dev)
+
     # ---- 4. the main path
     _zero_launches()
     t0 = time.perf_counter()
@@ -857,14 +985,20 @@ def main() -> int:
     _check(ate_kf["rmse"] < ATE_BOUND_M, f"keyframe ATE {ate_kf}")
     phase_launches = {"main_path": launches}
 
+    # ---- 4b. where a keyframe step's time goes: steps 8-11 of the same world
+    from stereo_vo_tpu_torch.utils.profiling import profile_keyframes
+
+    prof = profile_keyframes(cfg, world_frames, dev)
+    _log("profile, keyframe steps 8-11 streamed: " + json.dumps(prof))
+    bm_traced = prof["kernel_launches"]["stereo_bm_at_kernel"]
+    _check(prof["keyframes_profiled"] > 0 and bm_traced == prof["keyframes_profiled"],
+           f"the profiled keyframe steps ran the BM kernel once each: {bm_traced}")
+    _check(prof["kernel_launches"]["extract_regions_kernel"] == 0, "no region extraction")
+
     phase_launches.update(_offline_phases(cfg, dev))
 
     # ---- 8. single-device options
-    from stereo_vo_tpu_torch.data.kitti import KittiSequence
-
-    real = KittiSequence(os.path.join(os.path.dirname(os.path.abspath(__file__)), REAL_ROOT),
-                         REAL_SEQUENCE)[0]
-    _dense_bm_check(torch, cfg, "real pair 0", real.left, real.right, dev)
+    _dense_bm_check(torch, cfg, "real pair 0", real[0].left, real[0].right, dev)
     _dense_bm_check(torch, cfg, "synthetic frame 0", *world.render(0), dev)
     phase_launches["forward_only_tracking"] = _forward_tracking(torch, cfg, world, dev)
     _maxpool_check(torch, cfg, world, dev)
@@ -894,6 +1028,14 @@ def main() -> int:
         "replaces": "stereo_vo_tpu/ops/pallas_extract.py:168 with stereo_vo_tpu/ops/lk.py:182",
         "launches": total("lk_level_pass"),
         **lk_record,
+        "library_ms": None,
+    }, {
+        "name": "stereo_bm_at",
+        "route": "cuda",
+        "source": "stereo_vo_tpu_torch/csrc/stereo_bm_at.cu",
+        "replaces": "stereo_vo_tpu/ops/pallas_extract.py:168 with stereo_vo_tpu/ops/stereo_bm.py:176",
+        "launches": total("stereo_bm_at"),
+        **bm_record,
         "library_ms": None,
     }]}), flush=True)
     print(json.dumps({"ok": True, "device": {

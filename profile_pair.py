@@ -11,9 +11,13 @@ old, each in a child process that puts its tree first on ``sys.path``. A turn
 renders the 129-frame synthetic world of ``chip_smoke.py`` phase 5, runs this
 checkout's ``utils/profiling.py::profile_replay`` on that tree's package
 (frames 65-72 profiled, 49-80 timed), then the chunked replay
-(``run_vo(chunk_size=64, preload_device=True)``), and prints one JSON line.
-Each tree builds its own kernels at first use. Exits non-zero without a CUDA
-device or when a turn fails.
+(``run_vo(chunk_size=64, preload_device=True)``); then, on the 20-frame
+world of phase 4 (every frame a keyframe), ``profile_keyframes`` (steps 8-11
+profiled) and one ``stereo_bm_at`` call at the 748-slot keyframe input of
+``keyframe_bm_input`` (CUDA events, median of 20 samples of 10 calls), both
+through that tree's public functions. It prints one JSON line. Each tree
+builds its own kernels at first use. Exits non-zero without a CUDA device or
+when a turn fails.
 """
 
 from __future__ import annotations
@@ -28,6 +32,14 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 TURNS = ("old", "new", "new", "old")
 
 
+def _load_here(name: str, *parts: str):
+    """A module of this checkout, loaded from its file."""
+    spec = importlib.util.spec_from_file_location(name, os.path.join(HERE, *parts))
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
 def _turn(tree: str) -> None:
     sys.path.insert(0, tree)
     import torch
@@ -36,11 +48,10 @@ def _turn(tree: str) -> None:
     from stereo_vo_tpu_torch.core.config import load_config
     from stereo_vo_tpu_torch.data.synthetic import SyntheticStereoSequence
     from stereo_vo_tpu_torch.engine.driver import run_vo
+    from stereo_vo_tpu_torch.ops.stereo_bm import stereo_bm_at
 
-    path = os.path.join(HERE, "stereo_vo_tpu_torch", "utils", "profiling.py")
-    spec = importlib.util.spec_from_file_location("_profiling_here", path)
-    profiling = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(profiling)
+    profiling = _load_here("_profiling_here", "stereo_vo_tpu_torch", "utils", "profiling.py")
+    smoke = _load_here("_chip_smoke_here", "chip_smoke.py")
 
     cfg = load_config("kitti00")
     world = SyntheticStereoSequence(cam=cfg.camera, n_frames=129, shape=(376, 1241),
@@ -49,8 +60,22 @@ def _turn(tree: str) -> None:
     dev = torch.device("cuda:0")
     row = profiling.profile_replay(cfg, frames, dev)
     run = run_vo(iter(frames), cfg, chunk_size=64, preload_device=True, device=dev)
+    kf_frames = list(SyntheticStereoSequence(cam=cfg.camera, n_frames=20, shape=(376, 1241),
+                                             n_points=4000, seed=0, speed=0.8,
+                                             yaw_rate=0.003))
+    keyframe = profiling.profile_keyframes(cfg, kf_frames, dev)
+    left, right, xy, valid = profiling.keyframe_bm_input(cfg, kf_frames[0], kf_frames[1], dev)
+    fc = cfg.frontend
+    bm_ms = smoke._time_ms(torch, lambda: stereo_bm_at(
+        left, right, xy, valid, num_disparities=fc.bm_num_disparities,
+        block_size=fc.bm_block_size, prefilter_cap=fc.bm_prefilter_cap,
+        texture_threshold=fc.bm_texture_threshold, uniqueness_ratio=fc.bm_uniqueness_ratio,
+        compact_slots=fc.bm_compact_slots))
     print(json.dumps({"package": os.path.dirname(stereo_vo_tpu_torch.__file__),
-                      "chunked_frames_per_s": run.frames_per_sec, **row}), flush=True)
+                      "chunked_frames_per_s": run.frames_per_sec, **row,
+                      "keyframe": keyframe,
+                      "stereo_bm_at_748_ms": bm_ms, "stereo_bm_at_748_valid": int(valid.sum())}),
+          flush=True)
 
 
 def main(argv) -> int:

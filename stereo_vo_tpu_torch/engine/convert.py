@@ -71,9 +71,10 @@ def _leaves_of(state: VOState) -> List[torch.Tensor]:
 
 
 def state_from_numpy(leaves: Sequence[np.ndarray], cfg: PipelineConfig, image_shape,
-                     device="cpu") -> VOState:
-    """Build a ``VOState`` on ``device`` from reference-ordered leaves; each
-    leaf must have the shape and dtype of the engine's own state."""
+                     device="cuda") -> VOState:
+    """Build a ``VOState`` on ``device`` (the card unless asked for the CPU,
+    as ``VOEngine``) from reference-ordered leaves; each leaf must have the
+    shape and dtype of the engine's own state."""
     template = _leaves_of(VOEngine(cfg, image_shape, device="cpu").init_state())
     if len(leaves) != len(template):
         raise ValueError(f"expected {len(template)} leaves, got {len(leaves)}")

@@ -12,9 +12,12 @@ On a CUDA tensor it launches the hand-written kernel
 ``csrc/extract_regions.cu`` (the port of the TPU kernels in
 ``stereo_vo_tpu/ops/pallas_extract.py``) and raises if it cannot; it never
 falls back. On a CPU tensor it runs the plain PyTorch version
-``extract_regions_ref``. Sparse StereoBM calls it (two calls per keyframe);
-LK stages its regions inside its own level-pass kernel (``ops/lk.py``), and
-its plain version copies them with ``extract_regions_ref`` and ``pad_edge``.
+``extract_regions_ref``. It is the port's counterpart of the contract of
+both TPU variants, held bitwise against ``extract_regions_ref`` on the card
+(``chip_smoke.py`` phase 3), but no main-path caller launches it on the card
+any more: LK stages its regions inside its level-pass kernel (``ops/lk.py``)
+and sparse StereoBM inside its own kernel (``ops/stereo_bm.py``). Their plain
+versions copy regions with ``extract_regions_ref`` and ``pad_edge``.
 """
 
 from __future__ import annotations

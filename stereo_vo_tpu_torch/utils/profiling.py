@@ -13,6 +13,9 @@ CPU, where there are no kernels, the self CPU time of each operator.
 ``profile_replay`` profiles a window of streamed steps on the card: kernel
 launches, synchronizations and device time per frame, the device launches of
 the port's hand-written kernels, step and ``track_step`` latency.
+``profile_keyframes`` does the same for keyframe steps (the 20-frame world,
+where every frame is a keyframe), and ``keyframe_bm_input`` builds the
+748-slot sparse-BM input of a keyframe step.
 """
 
 from __future__ import annotations
@@ -110,8 +113,31 @@ def runtime_calls(prof) -> Dict[str, int]:
 PROFILED_FRAMES = (65, 73)
 CRUISE_FRAMES = (49, 81)
 
+# the steps of the 20-frame synthetic world (every frame a keyframe) that
+# profile_keyframes profiles, and the first unprofiled step it times (step 1
+# builds the LK kernel at first use)
+KEYFRAME_PROFILED = (8, 12)
+KEYFRAME_TIMED_FROM = 2
+
 # device function names of the port's hand-written kernels (csrc/*.cu)
-PORT_KERNELS = ("lk_level_kernel", "extract_regions_kernel")
+PORT_KERNELS = ("lk_level_kernel", "stereo_bm_at_kernel", "extract_regions_kernel")
+
+
+def _trace_counts(prof, n) -> dict:
+    """Launches, syncs and device ms per step over ``n`` profiled steps, and
+    the device launches of each of ``PORT_KERNELS`` in the trace."""
+    from torch.autograd import DeviceType
+
+    calls = runtime_calls(prof)
+    device_ms = sum(ms for ms, _ in summarize_trace(prof, top=100000))
+    kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    return {
+        "launches_per_frame": calls["launches"] / n,
+        "syncs_per_frame": calls["syncs"] / n,
+        "device_ms_per_frame": device_ms / n,
+        "kernel_launches": {name: sum(e.count for e in kernels if name in e.key)
+                            for name in PORT_KERNELS},
+    }
 
 
 def profile_replay(cfg, frames, device) -> dict:
@@ -126,7 +152,6 @@ def profile_replay(cfg, frames, device) -> dict:
     one extra synchronized ``track_step`` per frame (its result discarded),
     both in ms."""
     import torch
-    from torch.autograd import DeviceType
 
     from stereo_vo_tpu_torch.engine.step import VOEngine, parse_summary
     from stereo_vo_tpu_torch.frontend.track import track_step
@@ -161,18 +186,85 @@ def profile_replay(cfg, frames, device) -> dict:
             state = advance(state, frames[i], False)
     for i in range(end, CRUISE_FRAMES[1]):
         state = advance(state, frames[i], True)
-    n = end - first
-    calls = runtime_calls(prof)
-    device_ms = sum(ms for ms, _ in summarize_trace(prof, top=100000))
-    kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
     return {
         "frames": [first, end],
-        "launches_per_frame": calls["launches"] / n,
-        "syncs_per_frame": calls["syncs"] / n,
-        "device_ms_per_frame": device_ms / n,
-        "kernel_launches": {name: sum(e.count for e in kernels if name in e.key)
-                            for name in PORT_KERNELS},
+        **_trace_counts(prof, end - first),
         "step_ms_p50": statistics.median(step_ms),
         "track_step_ms_p50": statistics.median(track_ms),
         "hinted_share": sum(hinted) / len(hinted),
     }
+
+
+def profile_keyframes(cfg, frames, device) -> dict:
+    """Stream ``frames`` (the 20-frame synthetic world, every frame a
+    keyframe) through a fresh ``VOEngine`` on ``device`` (a CUDA device) and
+    profile the steps of ``KEYFRAME_PROFILED`` with ``torch.profiler``.
+
+    Returns the step wall p50 in ms over the unprofiled steps from
+    ``KEYFRAME_TIMED_FROM`` on, then per profiled step ``launches``,
+    ``syncs`` and ``device_ms``, the device launches there of each of
+    ``PORT_KERNELS``, and how many of the profiled steps were keyframes."""
+    import torch
+
+    from stereo_vo_tpu_torch.engine.step import VOEngine, parse_summary
+
+    engine = VOEngine(cfg, frames[0].left.shape, device=device)
+    state, _ = engine.bootstrap(engine.init_state(), frames[0].left, frames[0].right)
+    torch.cuda.synchronize(device)
+    first, end = KEYFRAME_PROFILED
+    step_ms, keyframes = [], 0
+
+    def advance(state, f, timed):
+        t0 = time.perf_counter()
+        state, out = engine.step(state, f.left, f.right)
+        row = parse_summary(out.summary)[1]
+        torch.cuda.synchronize(device)
+        if timed:
+            step_ms.append(1e3 * (time.perf_counter() - t0))
+        return state, row["is_keyframe"]
+
+    for i in range(1, first):
+        state, _ = advance(state, frames[i], i >= KEYFRAME_TIMED_FROM)
+    with device_trace() as prof:
+        for i in range(first, end):
+            state, kf = advance(state, frames[i], False)
+            keyframes += int(kf)
+    for i in range(end, len(frames)):
+        state, _ = advance(state, frames[i], True)
+    return {
+        "frames": [first, end],
+        "step_ms_p50": statistics.median(step_ms),
+        "keyframes_profiled": keyframes,
+        **_trace_counts(prof, end - first),
+    }
+
+
+def keyframe_bm_input(cfg, frame0, frame1, device, live=True):
+    """The 748-slot sparse-BM input of a keyframe step on ``frame0``:
+    ``(left, right, xy, valid)``. The slots are ``frame0``'s detections, then
+    ``feature_capacity`` slots of ``frame1``'s detections (tiled) standing in
+    for the tracked inliers. ``live``: the engine's usual load, the new
+    detections deduplicated against the tracked ones and the valid slots cut
+    to ``bm_compact_slots`` (the plain version compacts); else every slot
+    valid (it matches at full width)."""
+    import torch
+
+    from stereo_vo_tpu_torch.frontend.detect import dedup_new_features, detect_features
+
+    fc = cfg.frontend
+    f_cap = cfg.backend.feature_capacity
+    left = torch.from_numpy(frame0.left).to(device).to(torch.float32)
+    right = torch.from_numpy(frame0.right).to(device).to(torch.float32)
+    det_xy, det_valid = detect_features(left, fc)
+    trk_xy, trk_valid = detect_features(
+        torch.from_numpy(frame1.left).to(device).to(torch.float32), fc)
+    pts = trk_xy[trk_valid]
+    feat_xy = pts[torch.arange(f_cap, device=device) % pts.shape[0]]
+    if live:
+        feat_valid = torch.arange(f_cap, device=device) < pts.shape[0]
+        new_valid = dedup_new_features(det_xy, det_valid, feat_xy, feat_valid, fc.min_distance)
+        valid = torch.cat([new_valid, feat_valid])
+        valid &= torch.cumsum(valid.to(torch.int64), 0) <= fc.bm_compact_slots
+    else:
+        valid = torch.ones(det_xy.shape[0] + f_cap, dtype=torch.bool, device=device)
+    return left, right, torch.cat([det_xy, feat_xy]).contiguous(), valid

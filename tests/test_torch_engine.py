@@ -110,17 +110,21 @@ def test_entry_points_default_to_cuda():
     assert cpu_engine(port_config(_config()), SHAPE).device.type == "cpu"
 
 
+def test_state_from_numpy_defaults_to_cuda():
+    assert inspect.signature(state_from_numpy).parameters["device"].default == "cuda"
+
+
 def test_state_round_trip(jax_state_at_step):
     cfg = port_config(_config())
     leaves = [np.asarray(x) for x in jax.tree.leaves(jax_state_at_step)]
-    state = state_from_numpy(leaves, cfg, SHAPE)
+    state = state_from_numpy(leaves, cfg, SHAPE, device="cpu")
     back = state_to_numpy(state)
     assert len(back) == len(leaves) == cfg.frontend.lk_max_level + 25
     for i, (a, b) in enumerate(zip(back, leaves)):
         assert a.dtype == b.dtype, i
         assert_equal(a, b, f"leaf {i}")
     with pytest.raises(ValueError):
-        state_from_numpy(leaves[:-1], cfg, SHAPE)
+        state_from_numpy(leaves[:-1], cfg, SHAPE, device="cpu")
 
 
 def test_step_parity_from_reference_state(world, jax_engine, jax_state_at_step):
@@ -130,7 +134,7 @@ def test_step_parity_from_reference_state(world, jax_engine, jax_state_at_step):
     jstate, jout = jax_engine.step(jax_state_at_step, to_jax(left), to_jax(right))
     engine = cpu_engine(cfg_t, SHAPE)
     tstate0 = state_from_numpy([np.asarray(x) for x in jax.tree.leaves(jax_state_at_step)],
-                               cfg_t, SHAPE)
+                               cfg_t, SHAPE, device="cpu")
     # the reference's PnP samples for this frame: its jax.random draw over the
     # tracked-valid mask (the port's mask; the tracker's parity is asserted
     # below through the counts and the re-initialized slots)
