@@ -80,7 +80,14 @@ class FrontendConfig:
 
 @dataclasses.dataclass(frozen=True)
 class BackendConfig:
-    """Sliding-window bundle-adjustment constants."""
+    """Sliding-window bundle-adjustment constants.
+
+    ``reduced_solve_f64`` (the f64 island, YAML ``backend:
+    reduced_solve_f64: true``): the port solves the reduced camera system in
+    float64 whenever it is set. The reference honours it only when JAX runs
+    with ``jax_enable_x64`` (``stereo_vo_tpu/backend/schur.py:611``) and
+    otherwise solves in float32 with refinement, so with the flag set the two
+    packages agree only under x64 (``tests/test_torch_precision.py``)."""
 
     window_size: int = 5
     max_features: int = 400

@@ -76,28 +76,26 @@ def _smooth_noise(rng, h, w, octaves=4, amp=40.0):
     return tex
 
 
+SAMPLE_PHOTO = os.path.join(os.path.dirname(os.path.abspath(__file__)), "grace_hopper.jpg")
+
+
 def load_sample_photo() -> Optional[np.ndarray]:
-    """Public-domain photograph for photo-textured worlds (None if the
-    matplotlib sample data is unavailable).
+    """Public-domain photograph for photo-textured worlds (None if PIL is
+    unavailable to decode it).
 
     The Grace Hopper portrait shipped with matplotlib (a US government work),
     zero-meaned and contrast-scaled for the renderer's mid-gray canvas. Worlds
     textured with it have natural image statistics (real gradients, lighting
     structure) — the regime the pipeline defaults are tuned for, vs the
     band-limited-noise billboards (tests/fixtures/make_real_fixtures.py uses
-    the same source for the checked-in PNG fixtures)."""
+    the same source for the checked-in PNG fixtures). The port ships a
+    byte-equal copy of matplotlib's ``sample_data/grace_hopper.jpg``
+    (``SAMPLE_PHOTO``), so it loads where matplotlib is not installed."""
     try:
-        import matplotlib
         from PIL import Image
     except ImportError:
         return None
-    path = os.path.join(
-        os.path.dirname(matplotlib.__file__), "mpl-data", "sample_data",
-        "grace_hopper.jpg",
-    )
-    if not os.path.exists(path):
-        return None
-    img = np.asarray(Image.open(path).convert("L"), np.float32)
+    img = np.asarray(Image.open(SAMPLE_PHOTO).convert("L"), np.float32)
     return (img - img.mean()) * 0.9
 
 

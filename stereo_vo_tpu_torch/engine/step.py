@@ -9,8 +9,9 @@ Schur-LM solve. Each of the reference's ``lax.cond`` branches is a Python
 ``if`` on a 0-d tensor here, so every branch costs one host sync and only the
 taken branch runs.
 
-The PnP hypotheses are drawn from a generator seeded with the frame index;
-``step(..., pnp_indices=...)`` injects them instead.
+The PnP hypotheses are the reference's own ``jax.random`` draw, recomputed
+bit for bit from the frame index (``frontend/prng.py``);
+``step(..., pnp_indices=...)`` injects others instead.
 
 ``VOEngine.replay_chunk`` is the offline-replay path: the state-independent
 preprocessing of a ``[K, H, W]`` chunk runs as one batched pass, then the

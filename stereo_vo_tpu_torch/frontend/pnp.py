@@ -13,10 +13,10 @@
 
 The seam between sampling and solving: ``pnp_ransac_core`` takes the
 hypothesis sample indices ``[n_hyp - 1, k]`` as input. ``pnp_ransac`` draws
-them with a ``torch.Generator`` seeded from the frame index (multinomial
-without replacement over the valid mask); the reference draws them with
-``jax.random``, whose streams torch cannot reproduce, so tests inject the
-reference's indices into the core.
+them with ``sample_hypotheses``, which recomputes the reference's
+``jax.random`` draw bit for bit from the frame index (``frontend/prng.py``),
+so both packages solve the same hypotheses; ``hyp_idx`` still lets a caller
+inject its own.
 """
 
 from __future__ import annotations
@@ -36,6 +36,7 @@ from stereo_vo_tpu_torch.core.geometry import (
     rotmat_to_quat,
 )
 from stereo_vo_tpu_torch.backend.residuals import reprojection_jacobians
+from stereo_vo_tpu_torch.frontend import prng
 
 
 def _inv3(m: torch.Tensor) -> torch.Tensor:
@@ -261,18 +262,27 @@ def pnp_ransac_core(
 
 
 def sample_hypotheses(valid: torch.Tensor, n_draws: int, k: int, seed: int) -> torch.Tensor:
-    """``[n_draws, k]`` int64 minimal-sample indices, each row ``k`` distinct
-    slots drawn uniformly from the valid ones by a CPU ``torch.Generator``
-    seeded with ``seed`` (so a replay is reproducible on any device). With
-    fewer than ``k`` valid slots, invalid slots fill the remainder."""
-    gen = torch.Generator(device="cpu")
-    gen.manual_seed(int(seed))
-    w = valid.detach().to("cpu", torch.float32)
-    if int((w > 0).sum()) < k:
-        w = w + 1e-6
-    idx = torch.multinomial(w.expand(n_draws, -1).contiguous(), k,
-                            replacement=False, generator=gen)
-    return idx.to(valid.device)
+    """``[n_draws, k]`` int64 minimal-sample indices on ``valid``'s device:
+    exactly the reference's draw, ``jax.random.choice(key_i, F, (k,),
+    replace=False, p=valid / n_valid)`` with ``key_i`` the rows of
+    ``split(PRNGKey(seed), n_draws)``, by the Gumbel top-k trick.
+
+    Each row is the ``k`` largest of ``gumbel(key_i) + log(p)``, ties to the
+    lower index (a stable descending sort, as ``lax.top_k``). Invalid slots
+    score ``-inf``, so with fewer than ``k`` valid slots the lowest-index
+    invalid ones fill the row, and with none it is ``0..k-1``.
+
+    Everything runs on ``valid``'s device from the Python ``seed``: no value
+    is read back to the host and nothing is copied to the device. The first
+    call on a device builds the tables of ``prng.gumbel_table`` and
+    ``prng.log_inverse_counts`` there."""
+    dev = valid.device
+    f_cap = valid.shape[0]
+    keys = prng.split(prng.prng_key(seed, device=dev), n_draws)
+    n_valid = torch.sum(valid.to(torch.int64)).reshape(1)
+    log_p = torch.index_select(prng.log_inverse_counts(f_cap, dev), 0, n_valid)
+    score = prng.gumbel(keys, f_cap) + torch.where(valid, log_p, float("-inf"))
+    return torch.sort(score, dim=1, descending=True, stable=True).indices[:, :k]
 
 
 def pnp_ransac(

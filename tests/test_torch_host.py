@@ -27,7 +27,7 @@ from stereo_vo_tpu.eval import viz as jax_viz
 from stereo_vo_tpu_torch import cli, smoke
 from stereo_vo_tpu_torch.core import geometry as geo
 from stereo_vo_tpu_torch.core.config import load_config
-from stereo_vo_tpu_torch.data import kitti, native_loader
+from stereo_vo_tpu_torch.data import kitti, native_loader, synthetic
 from stereo_vo_tpu_torch.data.stream import LiveStereoStream
 from stereo_vo_tpu_torch.data.synthetic import SyntheticStereoSequence
 from stereo_vo_tpu_torch.engine.driver import write_world_points
@@ -90,6 +90,31 @@ def test_kitti_sequence_matches_jax():
     replayed = list(kitti.kitti_replay(FIXTURES, "real", max_frames=3))
     assert [f.index for f in replayed] == [0, 1, 2]
     assert_equal(replayed[2].left, ref[2].left, "prefetched frame")
+
+
+def test_sample_photo_copy_equals_matplotlib_file():
+    """The port's photo texture is matplotlib's ``grace_hopper.jpg``, byte
+    for byte (61,306 bytes, a JPEG)."""
+    with open(synthetic.SAMPLE_PHOTO, "rb") as f:
+        ours = f.read()
+    assert len(ours) == 61306 and ours[:3] == b"\xff\xd8\xff"
+    try:
+        import matplotlib
+    except ImportError:
+        return
+    path = os.path.join(os.path.dirname(matplotlib.__file__), "mpl-data", "sample_data",
+                        "grace_hopper.jpg")
+    with open(path, "rb") as f:
+        assert f.read() == ours
+
+
+def test_sample_photo_matches_jax_loader_without_matplotlib(monkeypatch):
+    from stereo_vo_tpu.data.synthetic import load_sample_photo as jax_load_sample_photo
+
+    want = jax_load_sample_photo()
+    assert want is not None and want.shape == (600, 512)
+    monkeypatch.setitem(sys.modules, "matplotlib", None)
+    assert_equal(synthetic.load_sample_photo(), want, "photo texture")
 
 
 def test_parse_kitti_poses_matches_jax(tmp_path):

@@ -134,18 +134,36 @@ def write_kitti_sequence(root, name, frames):
     return seq
 
 
-def jax_pnp_indices(valid, seed: int, n_hyp: int, k: int) -> np.ndarray:
-    """The minimal samples ``stereo_vo_tpu/frontend/pnp.py`` draws for one
-    frame (``[n_hyp - 1, k]``), rebuilt with the same ``jax.random`` calls."""
+def _jax_draw(valid, seed, n_hyp: int, k: int):
+    """The ``jax.random`` calls of ``stereo_vo_tpu/frontend/pnp.py::pnp_ransac``
+    on a valid mask and a uint32 seed (the frame index)."""
     import jax
     import jax.numpy as jnp
 
-    valid = jnp.asarray(np.asarray(valid))
     f_cap = valid.shape[0]
     n_valid = jnp.sum(valid.astype(jnp.int32))
     probs = valid.astype(jnp.float32) / jnp.maximum(n_valid, 1).astype(jnp.float32)
     keys = jax.random.split(jax.random.PRNGKey(seed), n_hyp - 1)
-    idx = jax.vmap(
+    return jax.vmap(
         lambda hk: jax.random.choice(hk, f_cap, shape=(k,), replace=False, p=probs)
     )(keys)
+
+
+def jax_pnp_indices(valid, seed: int, n_hyp: int, k: int) -> np.ndarray:
+    """The minimal samples ``stereo_vo_tpu/frontend/pnp.py`` draws for one
+    frame (``[n_hyp - 1, k]``), rebuilt with the same ``jax.random`` calls."""
+    import jax.numpy as jnp
+
+    idx = _jax_draw(jnp.asarray(np.asarray(valid)), np.uint32(seed), n_hyp, k)
+    return np.asarray(idx).astype(np.int64)
+
+
+def jax_pnp_indices_batch(valids, seeds, n_hyp: int, k: int) -> np.ndarray:
+    """``jax_pnp_indices`` for each row of ``valids [B, F]`` and of ``seeds
+    [B]``, in one jitted call: ``[B, n_hyp - 1, k]``."""
+    import jax
+    import jax.numpy as jnp
+
+    draw = jax.jit(jax.vmap(lambda v, s: _jax_draw(v, s, n_hyp, k)))
+    idx = draw(jnp.asarray(np.asarray(valids)), jnp.asarray(np.asarray(seeds, np.uint32)))
     return np.asarray(idx).astype(np.int64)
