@@ -35,20 +35,22 @@ def pad_edge(img: torch.Tensor, m: int) -> torch.Tensor:
 
 
 def _check(stack: torch.Tensor, origins: torch.Tensor, ry: int, rx: int):
+    """Raise on a stack, origins or region size the extraction does not
+    take; return the stack's ``(C, Hp, Wp)``."""
     if stack.dim() != 3 or stack.dtype != torch.float32:
         raise ValueError(f"stack must be [C, Hp, Wp] float32, got {tuple(stack.shape)} {stack.dtype}")
     if origins.dim() != 2 or origins.shape[1] != 2:
         raise ValueError(f"origins must be [N, 2], got {tuple(origins.shape)}")
-    _, hp, wp = stack.shape
+    c, hp, wp = stack.shape
     if not (0 < ry <= hp and 0 < rx <= wp):
         raise ValueError(f"region {ry}x{rx} does not fit a {hp}x{wp} image")
+    return c, hp, wp
 
 
 def extract_regions_ref(stack: torch.Tensor, origins: torch.Tensor, ry: int, rx: int
                         ) -> torch.Tensor:
     """Plain PyTorch version: batched advanced indexing with clamped starts."""
-    _check(stack, origins, ry, rx)
-    _, hp, wp = stack.shape
+    _, hp, wp = _check(stack, origins, ry, rx)
     origins = origins.to(torch.int64)
     ox, oy = origins[:, 0], origins[:, 1]
     ox = torch.where(ox < 0, ox + wp, ox).clamp(0, wp - rx)
@@ -59,17 +61,22 @@ def extract_regions_ref(stack: torch.Tensor, origins: torch.Tensor, ry: int, rx:
     return out.permute(1, 0, 2, 3).contiguous()
 
 
-def _kernel():
-    from stereo_vo_tpu_torch import cuda_build
+_fn = None
 
-    lib = cuda_build.load("extract_regions")
-    fn = lib.svo_extract_regions
-    if fn.argtypes is None:
+
+def _kernel():
+    """The kernel's C entry point, built, loaded and typed at first use."""
+    global _fn
+    if _fn is None:
+        from stereo_vo_tpu_torch import cuda_build
+
+        fn = cuda_build.load("extract_regions").svo_extract_regions
         fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
                        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
                        ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
         fn.restype = ctypes.c_int
-    return fn
+        _fn = fn
+    return _fn
 
 
 def extract_regions(stack: torch.Tensor, origins: torch.Tensor, ry: int, rx: int
@@ -78,26 +85,26 @@ def extract_regions(stack: torch.Tensor, origins: torch.Tensor, ry: int, rx: int
 
     CUDA tensors go through the kernel (each launch adds one to
     ``extract_regions.launches``); CPU tensors through ``extract_regions_ref``.
+    The host side checks what the kernel needs, and nothing twice.
     """
-    if stack.device.type == "cpu":
+    device = stack.device
+    if device.type == "cpu":
         return extract_regions_ref(stack, origins, ry, rx)
-    if stack.device.type != "cuda":
-        raise ValueError(f"extract_regions: unsupported device {stack.device}")
-    _check(stack, origins, ry, rx)
-    if origins.device != stack.device or origins.dtype != torch.int32:
+    if device.type != "cuda":
+        raise ValueError(f"extract_regions: unsupported device {device}")
+    c, hp, wp = _check(stack, origins, ry, rx)
+    if origins.device != device or origins.dtype != torch.int32:
         raise ValueError("origins must be int32 on the stack's device")
     if not (stack.is_contiguous() and origins.is_contiguous()):
         raise ValueError("stack and origins must be contiguous")
-    c, hp, wp = stack.shape
     n = origins.shape[0]
-    out = torch.empty((n, c, ry, rx), dtype=torch.float32, device=stack.device)
+    out = torch.empty((n, c, ry, rx), dtype=torch.float32, device=device)
     if n == 0:
         return out
     fn = _kernel()
-    with torch.cuda.device(stack.device):
-        stream = torch.cuda.current_stream(stack.device).cuda_stream
-        rc = fn(stack.data_ptr(), origins.data_ptr(), out.data_ptr(),
-                c, hp, wp, n, ry, rx, stream)
+    with torch.cuda.device(device):
+        rc = fn(stack.data_ptr(), origins.data_ptr(), out.data_ptr(), c, hp, wp, n, ry, rx,
+                torch.cuda.current_stream(device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"extract_regions kernel launch failed: CUDA error {rc}")
     extract_regions.launches += 1
