@@ -34,6 +34,12 @@ JAX or of the JAX package. Phases, each fatal on failure:
    88x88, N = 160 and 448), forward and backward role, within the ``LK_*``
    tolerances, both timed, beside the bound from this run's bytes and
    iterations, and the kernel's device time per launch at the headline shape;
+   then the fast-motion sweep of ``tests/test_lk_fast_motion.py``: its scene
+   shifted by each of ``FAST_SHIFTS`` (up to 200 px, where the top level's
+   guess sits at 25 of ``LK_SLACK_TOP`` = 26 px), ``lk_track_fwdbwd``
+   through the kernel against the same call through the plain version: no
+   fwd/bwd flag flipped, positions within ``LK_POS_TOL``, the survivors on
+   the known shift;
 3c. sparse StereoBM kernel check: ``stereo_bm_at`` against
    ``stereo_bm_at_ref`` on frames 0-1 of phase 4's world and pairs 0-1 of
    ``tests/fixtures/real``, bitwise (``torch.equal``: uint8 images make
@@ -55,7 +61,10 @@ JAX or of the JAX package. Phases, each fatal on failure:
    included) and no ``extract_regions`` launch, and the aligned keyframe
    ATE; then (4b) ``utils.profiling.profile_keyframes`` streams the same
    world and profiles steps 8-11: launches, syncs and device ms per keyframe
-   step, the BM kernel's launches in the device trace, step p50;
+   step, the BM kernel's launches in the device trace, step p50; then the
+   Shi-Tomasi response on frame 0 of the photo world (phase 5b's): the pixels
+   where the card's differs from the CPU's (want 0, single image and a stack
+   of three), and its device time per frame beside the former formula's;
 4c. the card held to the reference: phase 4's run, frame by frame, against
    the JAX package's run of the same world stored in
    ``tests/fixtures/jax_reference/kitti00_w20.npz``
@@ -75,6 +84,15 @@ JAX or of the JAX package. Phases, each fatal on failure:
    ``metrics.jsonl`` rows and the launches as in phase 4, and holds the run
    to ``kitti00_w129_c64.npz`` as phase 4c does, within
    ``REPLAY_TRAJ_TOL_CARD``;
+5b. the photo-textured long-horizon world (``tests/test_long_sequence.py``'s:
+   161 frames of 376x1241, the photograph as texture, 3000 points, seeds 11
+   and 23): ``run_vo(chunk_size=32, preload_device=True)`` on ``cuda``, the
+   launches as in phase 4, at least ``PHOTO_MIN_KEYFRAMES`` keyframes, held
+   to ``kitti00_photo_s{seed}_w161_c32.npz`` by the divergence rule of
+   ``tests/test_torch_long_horizon.py``: per-frame differences printed, the
+   frames held exactly, the first departure with what departed and the
+   nudged reference reruns' departure there, keyframes and the aligned
+   keyframe ATE beside the reference runs';
 6. resume: ``run_vo(resume_from=<phase 5's checkpoint>, chunk_size=64)``
    over the same frames gives exactly frames 65-128, finite, the first
    within ``RESUME_TOL`` of phase 5's pose for frame 65, launches as in
@@ -94,7 +112,9 @@ JAX or of the JAX package. Phases, each fatal on failure:
    capacities): (a) the dense StereoBM on pair 0 of ``tests/fixtures/real``
    and on frame 0 of phase 4's world, sampled at the detected corners, must
    equal the sparse ``stereo_bm_at`` (its kernel) there (validity
-   identical, values within ``BM_TOL``); (b) forward-only tracking
+   identical, values within ``BM_TOL``), and ``triangulate_features`` on the
+   dense map must give the sparse path's points there (validity identical,
+   within ``TRI_RTOL``); (b) forward-only tracking
    (``track_step(flow_back=False)``) over phase 4's 19 consecutive pairs,
    each from a fresh ``tracker_init`` on frame t's detections: exactly one
    ``lk_level_pass`` launch per pyramid level per pair, a median tracked count
@@ -114,7 +134,7 @@ JAX or of the JAX package. Phases, each fatal on failure:
    count.
 
 Launch counts are zeroed just before, and read just after, each of phases
-4-6 and 8b (phase 7's launches happen in a child process and are not
+4-6 (5b once per seed) and 8b (phase 7's launches happen in a child process and are not
 counted). The line before the last is the kernels' JSON record, with
 launches summed over phases 4-6 and 8b, the headline shape's times
 (extraction: 160 regions of 56x56 at level 0; LK: the level-0 forward pass,
@@ -150,6 +170,22 @@ TRAJ_TOL_CARD = 6.5e-6
 REPLAY_TRAJ_TOL_CARD = 1e-3
 # num_tracked / num_inliers difference from the reference (the CPU test: 0)
 COUNT_TOL = 0
+# phase 5b: the photo-textured long-horizon world (tests/test_long_sequence.py,
+# stored JAX runs with their nudged reruns in REF_DIR), held by the divergence
+# rule of tests/test_torch_long_horizon.py (eval/parity.py::divergence_hold):
+# exact up to the first departure, which may come no earlier than the nudged
+# reference reruns' first and lie within SPREAD_FACTOR times their departure
+# there; then keyframes within the reference runs' range and the aligned
+# keyframe ATE within ATE_RTOL of theirs. The pose tolerance of the exact part
+# is twice the largest measured on an H100 (700 W) before the first departure
+PHOTO_SEEDS = (11, 23)
+PHOTO_CHUNK = 32
+PHOTO_WORLD = dict(n_frames=161, n_points=3000, speed=0.9, yaw_rate=0.004)
+TRAJ_TOL_PHOTO_CARD = 9.5e-6
+PHOTO_BA_RTOL = 1e-3
+SPREAD_FACTOR = 2.0
+ATE_RTOL = 0.10
+PHOTO_MIN_KEYFRAMES = 30
 N_FRAMES = 20
 IMAGE_SHAPE = (376, 1241)
 # phases 5-6: the bench's world (bench.py: 1 + 2 chunks of 64), its chunk
@@ -216,8 +252,10 @@ SHAPES = [
 # phase 3: every shape is checked from a stack at each of these offsets, in
 # floats, past a 16-byte boundary (the kernel assumes no alignment of rows)
 STACK_OFFSETS = (0, 1)
-# phase 8: dense vs sparse BM at the corners (both sum exact integers)
+# phase 8: dense vs sparse BM at the corners (both sum exact integers), and
+# the points triangulated from each (relative to max(|p|, 1))
 BM_TOL = 1e-5
+TRI_RTOL = 1e-4
 MAXPOOL_RANGE = (0.3, 1.0)
 # phase 9: sharded vs single device, the JAX dry run's bounds
 SHARD_POSE_TOL = 2e-4
@@ -248,6 +286,10 @@ LK_OK_SHARE = 0.995             # final ok equal on this share of active feature
 LK_POS_TOL = 0.02               # px, features ok in both
 LK_POS_MEDIAN_TOL = 1e-4        # px, median over features ok in both
 LK_CENTER_RTOL = 1e-4           # relative to max(|c|, 1)
+# phase 3b, fast motion: tests/test_lk_fast_motion.py's shifts (px), up to the
+# reference's 200 px parallax limit; the kernel path against the plain path,
+# no fwd/bwd flag flipped
+FAST_SHIFTS = (40, 100, 160, 200)
 # phase 3c: the sparse-BM slot sets, and the headline (pair, set)
 BM_SETS = ("bootstrap_n300", "keyframe_n748_le320", "keyframe_n748_all_valid",
            "all_invalid_n748", "empty_n0")
@@ -564,6 +606,114 @@ def _lk_level_check(torch, cfg, world, dev) -> dict:
     return {**head, "max_abs_err": max_px}
 
 
+def _fast_motion_check(torch, dev) -> float:
+    """Phase 3b, fast motion: ``lk_track_fwdbwd`` through the kernel against
+    the same call through ``lk_level_pass_ref`` on tests/test_lk_fast_motion.py's
+    scene shifted by each of ``FAST_SHIFTS``; returns the largest position
+    difference."""
+    import numpy as np
+
+    import stereo_vo_tpu_torch.ops.lk as lk
+    from stereo_vo_tpu_torch.data.synthetic import _smooth_noise
+    from stereo_vo_tpu_torch.ops.pyramid import build_pyramid
+    from stereo_vo_tpu_torch.ops.shi_tomasi import detect_corners
+
+    rng = np.random.default_rng(3)
+    scene = np.clip(128.0 + _smooth_noise(rng, 376, 1241, octaves=5, amp=55.0), 0, 255)
+    img = torch.from_numpy(scene.astype(np.uint8).astype(np.float32)).to(dev)
+    w = img.shape[1]
+    corners, _, found = detect_corners(img, max_corners=128, min_distance=30.0)
+    max_px = 0.0
+    for shift in FAST_SHIFTS:
+        cur = torch.zeros_like(img)
+        cur[:, shift:] = img[:, : w - shift]
+        valid = found & (corners[:, 0] + shift < w - 30)
+        xy = torch.where(valid[:, None], corners, torch.tensor([5.0, 7.0], device=dev))
+        args = (build_pyramid(img, 3), build_pyramid(cur, 3), xy, valid)
+        before = lk.lk_level_pass.launches
+        got = lk.lk_track_fwdbwd(*args, window=21, max_iters=30)
+        torch.cuda.synchronize()
+        launched = lk.lk_level_pass.launches - before
+        kernel, lk.lk_level_pass = lk.lk_level_pass, lk.lk_level_pass_ref
+        try:
+            want = lk.lk_track_fwdbwd(*args, window=21, max_iters=30)
+        finally:
+            lk.lk_level_pass = kernel
+        flips = int((got[1] != want[1]).sum()) + int((got[3] != want[3]).sum())
+        ok = want[1] & got[1]
+        d = float((got[0] - want[0]).abs().amax(dim=1)[ok].max())
+        err = float((got[0][ok, 0] - (xy[ok, 0] + shift)).abs().median())
+        max_px = max(max_px, d)
+        _log(f"check lk fast motion {shift} px: {launched} level passes on the card, "
+             f"{int(valid.sum())} corners, {int(got[1].sum())} forward ok, "
+             f"{int((got[1] & got[3]).sum())} both ok, flag flips against the plain path "
+             f"{flips}, max |kernel - plain| {d:.3g} px, median |tracked - truth| {err:.3g} px")
+        _check(launched == 8, f"fast motion {shift} px: {launched} launches for 8 level passes")
+        _check(flips == 0, f"fast motion {shift} px: {flips} fwd/bwd flags flipped")
+        _check(d <= LK_POS_TOL and err < 1.0, f"fast motion {shift} px: {d} px, error {err} px")
+    return max_px
+
+
+def _device_ms_all(torch, fn, calls=10) -> float:
+    """Device time per call of ``fn`` in ms: every kernel's self device time
+    ``torch.profiler`` records over ``calls`` calls."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    events = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    return sum(e.self_device_time_total for e in events) / calls / 1e3
+
+
+def _response_check(torch, photo_left, dev) -> None:
+    """Phase 4, the Shi-Tomasi response on a photo-world frame: the card's
+    against the CPU's, bitwise, for one image and a stack of three; and the
+    device time per frame against the former formula (rounded products, a
+    library square root)."""
+    from stereo_vo_tpu_torch.core.f32 import sqrt_f32
+    from stereo_vo_tpu_torch.ops.filters import box_filter, sobel_x, sobel_y
+    from stereo_vo_tpu_torch.ops.shi_tomasi import count_quality_peaks, min_eig_response
+
+    cpu = torch.from_numpy(photo_left).to(torch.float32)
+    card = cpu.to(dev)
+    want = min_eig_response(cpu)
+    got = min_eig_response(card).cpu()
+    stack = torch.stack([cpu, cpu.flip(1), cpu.flip(0)])
+    stack_diff = int((min_eig_response(stack.to(dev)).cpu() != min_eig_response(stack)).sum())
+    diff = int((got != want).sum())
+    peaks = (int(count_quality_peaks(card, resp=min_eig_response(card))),
+             int(count_quality_peaks(cpu, resp=want)))
+
+    def former(img):
+        ix, iy = sobel_x(img), sobel_y(img)
+        a, b, c = box_filter(ix * ix, 1), box_filter(ix * iy, 1), box_filter(iy * iy, 1)
+        return ((a + c) - torch.sqrt((a - c) ** 2 + 4.0 * b * b)) * 0.5
+
+    # the root the response takes on the card (torch.sqrt) against the CPU's
+    # correctly rounded one, on float32 inputs across the exponent range
+    gen = torch.Generator(device="cpu").manual_seed(9)
+    x = torch.rand(1 << 22, generator=gen) * torch.exp2(
+        torch.randint(-120, 120, (1 << 22,), generator=gen).to(torch.float32))
+    x = torch.cat([x, torch.rand(1 << 22, generator=gen) * 1e7])
+    root_diff = int((sqrt_f32(x.to(dev)).cpu() != sqrt_f32(x)).sum())
+    _log(f"torch.sqrt on the card against the correctly rounded float32 root: {root_diff} of "
+         f"{x.numel()} inputs differ")
+    _check(root_diff == 0, f"the card's square root differs at {root_diff} inputs")
+    new_ms = _device_ms_all(torch, lambda: min_eig_response(card))
+    old_ms = _device_ms_all(torch, lambda: former(card))
+    _log(f"response on photo frame 0 ({tuple(cpu.shape)}): {diff} pixels differ between the "
+         f"card and the CPU ({stack_diff} on a stack of 3), quality peaks {peaks[0]} on the "
+         f"card, {peaks[1]} on the CPU; device time per frame {new_ms:.4f} ms, the former "
+         f"formula's {old_ms:.4f} ms (+{new_ms - old_ms:.4f} ms)")
+    _check(diff == 0 and stack_diff == 0, f"response differs at {diff} + {stack_diff} pixels")
+    _check(peaks[0] == peaks[1], f"quality peaks {peaks}")
+
+
 def _bm_slot_sets(torch, cfg, frame0, frame1, dev):
     """Phase 3c's inputs on one stereo pair: the images and ``{set: (xy,
     valid, compact_slots)}`` for each of ``BM_SETS``."""
@@ -798,6 +948,63 @@ def _check_replay(cfg, run, gt_poses, out_dir, wall_s, launches) -> None:
     _hold_to_reference("chunked replay", run, "kitti00_w129_c64.npz", REPLAY_TRAJ_TOL_CARD)
 
 
+def _photo_world_phase(cfg, dev) -> dict:
+    """Phase 5b: ``run_vo(chunk_size=PHOTO_CHUNK, preload_device=True)`` over
+    each seed of the photo world, launches counted exactly, held to its
+    stored JAX run by the divergence rule; returns the launches per seed."""
+    import numpy as np
+
+    from stereo_vo_tpu_torch.data.synthetic import SyntheticStereoSequence, load_sample_photo
+    from stereo_vo_tpu_torch.engine.driver import run_vo
+    from stereo_vo_tpu_torch.eval.parity import (
+        INT_KEYS,
+        divergence_hold,
+        frame_differences,
+        run_summaries,
+    )
+
+    launches = {}
+    for seed in PHOTO_SEEDS:
+        name = f"kitti00_photo_s{seed}_w161_c32.npz"
+        ref = np.load(os.path.join(os.path.dirname(os.path.abspath(__file__)), REF_DIR, name))
+        world = SyntheticStereoSequence(cam=cfg.camera, shape=IMAGE_SHAPE, seed=seed,
+                                        texture=load_sample_photo(), **PHOTO_WORLD)
+        t0 = time.perf_counter()
+        frames = list(world)
+        render_s = time.perf_counter() - t0
+        _zero_launches()
+        t0 = time.perf_counter()
+        run = run_vo(iter(frames), cfg, chunk_size=PHOTO_CHUNK, preload_device=True, device=dev)
+        wall_s = time.perf_counter() - t0
+        launches[f"photo_world_s{seed}"] = counts = _launches()
+        stats = run.frame_stats
+        kf = np.array([s["is_keyframe"] for s in stats])
+        steps = stats[int(np.argmax(kf)) + 1:]
+        what = f"photo world seed {seed}"
+        _log(f"{what}: {len(frames)} frames rendered in {render_s:.2f} s, run in {wall_s:.2f} s "
+             f"(incl. preload upload), {run.frames_per_sec:.3f} frames/s after the first chunk")
+        _check_launches(what, counts, _lk_passes(cfg, steps), int(kf.sum()))
+        got = run_summaries(run)
+        _check(got.shape == ref["summaries"].shape and bool(np.isfinite(got).all()),
+               f"{what}: summaries {got.shape}")
+        d = frame_differences(got, ref["summaries"])
+        for i in range(len(got)):
+            ints = {k: int(d[k][i]) for k in INT_KEYS if d[k][i]}
+            _log(f"{what} vs reference, frame {i}: |dq| {d['dq'][i]:.3g} |dt| {d['dt'][i]:.3g} "
+                 f"BA costs {d['ba_initial_cost'][i]:.3g} {d['ba_final_cost'][i]:.3g}"
+                 + (f" integer differences {json.dumps(ints)}" if ints else ""))
+        report = divergence_hold(got, ref["summaries"], ref["spread_summaries"], world.gt_poses,
+                                 TRAJ_TOL_PHOTO_CARD, PHOTO_BA_RTOL, SPREAD_FACTOR, ATE_RTOL)
+        held = len(got) if report["frame"] is None else report["frame"]
+        exact_pose = float(np.maximum(d["dq"], d["dt"])[:held].max()) if held else 0.0
+        _log(f"{what} vs {name} (JAX {ref['jax_version']}): frames held exactly 0-{held - 1} "
+             f"(largest pose difference there {exact_pose:.3g}); "
+             + json.dumps({k: v for k, v in report.items() if k != "failures"}, default=float))
+        _check(not report["failures"], f"{what}: {report['failures']}")
+        _check(int(kf.sum()) >= PHOTO_MIN_KEYFRAMES, f"{what}: {int(kf.sum())} keyframes")
+    return launches
+
+
 def _check_cli(out_dir: str, dev) -> None:
     """Phase 7: the CLI in a child process on the real fixtures, with cv2,
     PIL and matplotlib unimportable in it."""
@@ -895,6 +1102,9 @@ def _offline_phases(cfg, dev) -> dict:
         _check(prof["kernel_launches"]["lk_level_kernel"] > 0,
                "the profiled frames ran the LK kernel")
 
+        # ---- 5b. the photo-textured long-horizon world, both seeds
+        phase_launches.update(_photo_world_phase(cfg, dev))
+
         # ---- 7. the CLI on real imagery, without cv2, PIL and matplotlib
         _check_cli(os.path.join(tmp, "cli"), dev)
     return phase_launches
@@ -903,6 +1113,10 @@ def _offline_phases(cfg, dev) -> dict:
 def _dense_bm_check(torch, cfg, label, left, right, dev) -> None:
     """Phase 8a on one stereo pair (uint8 numpy images)."""
     from stereo_vo_tpu_torch.frontend.detect import detect_features
+    from stereo_vo_tpu_torch.frontend.triangulate import (
+        triangulate_features,
+        triangulate_from_disparities,
+    )
     from stereo_vo_tpu_torch.ops.stereo_bm import disparity_at, stereo_bm_at, stereo_bm_disparity
 
     fc = cfg.frontend
@@ -924,6 +1138,18 @@ def _dense_bm_check(torch, cfg, label, left, right, dev) -> None:
     _check(dense.shape == lt.shape and same_valid and err <= BM_TOL,
            f"dense BM {label} equals sparse BM at the corners")
     _check(share > 0.05, f"dense BM {label} valid share {share}")
+    # the dense map triangulated at the corners, against the sparse path's
+    # points at the same corners
+    pose = torch.tensor([0.99, 0.05, -0.08, 0.1, 0.4, -0.2, 1.5], device=dev)
+    pose[:4] = pose[:4] / torch.linalg.vector_norm(pose[:4])
+    p_dense, ok_dense = triangulate_features(dense, xy, valid, cfg.camera, pose)
+    p_sparse, ok_sparse = triangulate_from_disparities(sparse, xy, valid, cfg.camera, pose)
+    p_err = float(((p_dense - p_sparse).abs() / p_sparse.abs().clamp(min=1.0)).max())
+    _log(f"triangulate_features {label}: {int(ok_dense.sum())} points from the dense map, "
+         f"validity equal to the sparse path's: {bool(torch.equal(ok_dense, ok_sparse))}, "
+         f"max relative |dense - sparse| {p_err:.3g}")
+    _check(torch.equal(ok_dense, ok_sparse) and int(ok_dense.sum()) > 0 and p_err <= TRI_RTOL,
+           f"triangulate_features {label} agrees with the sparse path")
 
 
 def _forward_tracking(torch, cfg, world, dev) -> int:
@@ -1122,6 +1348,7 @@ def main() -> int:
         speed=0.8, yaw_rate=0.003,
     )
     lk_record = _lk_level_check(torch, cfg, world, dev)
+    lk_record["max_abs_err"] = max(lk_record["max_abs_err"], _fast_motion_check(torch, dev))
 
     # ---- 3c. the sparse StereoBM kernel against its plain version
     from stereo_vo_tpu_torch.data.kitti import KittiSequence
@@ -1164,11 +1391,16 @@ def main() -> int:
     _check(ate_kf["rmse"] < ATE_BOUND_M, f"keyframe ATE {ate_kf}")
     phase_launches = {"main_path": launches}
 
-    # ---- 4b. where a keyframe step's time goes: steps 8-11 of the same world
+    # ---- 4b. where a keyframe step's time goes: steps 8-11 of the same world,
+    # and the Shi-Tomasi response on a photo frame (bitwise the CPU's; its
+    # device time per frame against the former formula's)
     from stereo_vo_tpu_torch.utils.profiling import profile_keyframes
 
     prof = profile_keyframes(cfg, world_frames, dev)
     _log("profile, keyframe steps 8-11 streamed: " + json.dumps(prof))
+    photo_world = SyntheticStereoSequence(cam=cfg.camera, shape=IMAGE_SHAPE, seed=PHOTO_SEEDS[0],
+                                          texture=photo, **PHOTO_WORLD)
+    _response_check(torch, photo_world.render(0)[0], dev)
     bm_traced = prof["kernel_launches"]["stereo_bm_at_kernel"]
     _check(prof["keyframes_profiled"] > 0 and bm_traced == prof["keyframes_profiled"],
            f"the profiled keyframe steps ran the BM kernel once each: {bm_traced}")

@@ -37,6 +37,7 @@ import torch.distributed as dist
 
 from stereo_vo_tpu_torch.core.camera import CameraInfo
 from stereo_vo_tpu_torch.core.config import BackendConfig
+from stereo_vo_tpu_torch.core.f32 import sqrt_f32
 from stereo_vo_tpu_torch.core.geometry import (
     pose_q,
     pose_retract,
@@ -82,7 +83,7 @@ def _huber_weight(r: torch.Tensor, delta: float) -> torch.Tensor:
     disables it."""
     if delta <= 0:
         return torch.ones(r.shape[:-1], dtype=r.dtype, device=r.device)
-    norm = torch.sqrt(torch.sum(r * r, dim=-1) + 1e-12)
+    norm = sqrt_f32(torch.sum(r * r, dim=-1) + 1e-12)
     # a filled numerator: torch's ``scalar / tensor`` rounds twice
     return torch.clamp(torch.full_like(norm, delta) / norm, max=1.0)
 
@@ -91,7 +92,7 @@ def _huber_rho(r: torch.Tensor, delta: float) -> torch.Tensor:
     sq = torch.sum(r * r, dim=-1)
     if delta <= 0:
         return 0.5 * sq
-    norm = torch.sqrt(sq + 1e-12)
+    norm = sqrt_f32(sq + 1e-12)
     return torch.where(norm <= delta, 0.5 * sq, delta * (norm - 0.5 * delta))
 
 
@@ -178,7 +179,7 @@ def _build_system(poses, lm_pos, prob: LandmarkMajorProblem, cam, cfg, group=Non
     pose_b, pts, mask = _obs_mask(poses, lm_pos, prob, cfg.min_depth)
     r, jp7, jl = reprojection_jacobians(pose_b, pts, prob.obs_uv, cam)
     r = torch.where(mask[..., None], r, 0.0)
-    sw = torch.sqrt(_huber_weight(r, cfg.huber_delta_px))[..., None]
+    sw = sqrt_f32(_huber_weight(r, cfg.huber_delta_px))[..., None]
     r = r * sw
     lift = quat_lift_jacobian(poses[:, 0:4])                       # [W, 4, 3]
     jq = torch.sum(jp7[..., 0:4, None] * lift[None, :, None, :, :], dim=-2)

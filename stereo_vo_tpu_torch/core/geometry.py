@@ -18,6 +18,8 @@ from __future__ import annotations
 
 import torch
 
+from stereo_vo_tpu_torch.core.f32 import sqrt_f32
+
 
 def _const(values, like: torch.Tensor) -> torch.Tensor:
     return torch.tensor(values, dtype=like.dtype, device=like.device)
@@ -114,7 +116,7 @@ def rotmat_to_quat(m: torch.Tensor) -> torch.Tensor:
 def quat_exp(delta: torch.Tensor) -> torch.Tensor:
     """Exponential map ``R^3 -> S^3``: ``[cos|δ|, sinc|δ| · δ]`` (w-first)."""
     n2 = torch.sum(delta * delta, dim=-1, keepdim=True)
-    n = torch.sqrt(n2)
+    n = sqrt_f32(n2)
     small = n < 1e-8
     w = torch.where(small, 1.0 - n2 / 2.0, torch.cos(n))
     nc = torch.clamp(n, min=1e-20)

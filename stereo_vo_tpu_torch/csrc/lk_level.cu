@@ -30,7 +30,9 @@
 //  5. write guess', solvable, in_region(guess') and the update count.
 // Every product and sum that the plain version rounds separately is written
 // with __fmul_rn / __fadd_rn, so nvcc cannot contract it into an FMA: the
-// samples, Scharr taps and per-feature scalars round as torch rounds them.
+// samples and per-feature scalars round as torch rounds them; the Scharr
+// taps fuse with __fmaf_rn where the plain version fuses them, as XLA's code
+// does (core/f32.py::tap_sum).
 // Only the order of the 441-term and region-mean sums differs.
 //
 // What bounds it on this card: bytes, then the serial iteration chain. Each
@@ -72,6 +74,12 @@ constexpr int kMaxPerThread = 8;   // window samples a thread owns: win^2 <= 102
 __device__ __forceinline__ float mul(float a, float b) { return __fmul_rn(a, b); }
 __device__ __forceinline__ float add(float a, float b) { return __fadd_rn(a, b); }
 __device__ __forceinline__ float sub(float a, float b) { return __fsub_rn(a, b); }
+
+// 3 a + 10 b + 3 c as the plain version's tap_sum rounds it: the first product
+// fused with the second, rounded; the third fused into that
+__device__ __forceinline__ float taps3(float a, float b, float c) {
+    return __fmaf_rn(3.0f, c, __fmaf_rn(3.0f, a, mul(10.0f, b)));
+}
 
 __device__ __forceinline__ int clampi(int v, int lo, int hi) { return min(max(v, lo), hi); }
 
@@ -229,14 +237,14 @@ lk_level_kernel(const float* __restrict__ tpl_img, const float* __restrict__ it_
             const float* dn = mid + wt;
             t_s[k] = mid[1];
             // Scharr x: rows [3, 10, 3], then columns [-1, 0, 1], / 32
-            const float sl = add(add(mul(3.0f, up[0]), mul(10.0f, mid[0])), mul(3.0f, dn[0]));
-            const float sr = add(add(mul(3.0f, up[2]), mul(10.0f, mid[2])), mul(3.0f, dn[2]));
+            const float sl = taps3(up[0], mid[0], dn[0]);
+            const float sr = taps3(up[2], mid[2], dn[2]);
             gx_s[k] = __fdiv_rn(add(-sl, sr), 32.0f);
             // Scharr y: rows [-1, 0, 1], then columns [3, 10, 3], / 32
             const float dl = add(-up[0], dn[0]);
             const float dc = add(-up[1], dn[1]);
             const float dr = add(-up[2], dn[2]);
-            gy_s[k] = __fdiv_rn(add(add(mul(3.0f, dl), mul(10.0f, dc)), mul(3.0f, dr)), 32.0f);
+            gy_s[k] = __fdiv_rn(taps3(dl, dc, dr), 32.0f);
             g11 = add(g11, mul(gx_s[k], gx_s[k]));
             g12 = add(g12, mul(gx_s[k], gy_s[k]));
             g22 = add(g22, mul(gy_s[k], gy_s[k]));

@@ -36,6 +36,7 @@ from stereo_vo_tpu_torch.backend.window import (
 )
 from stereo_vo_tpu_torch.core import geometry as geo
 from stereo_vo_tpu_torch.core.config import PipelineConfig
+from stereo_vo_tpu_torch.core.f32 import sqrt_f32
 from stereo_vo_tpu_torch.frontend.detect import dedup_new_features, detect_features
 from stereo_vo_tpu_torch.frontend.pnp import PnPResult, pnp_ransac
 from stereo_vo_tpu_torch.frontend.track import NO_FLOW, TrackerState, track_step, tracker_init
@@ -116,7 +117,7 @@ def _pad_to(arr: torch.Tensor, n: int) -> torch.Tensor:
 
 
 def _norm2(v: torch.Tensor) -> torch.Tensor:
-    return torch.sqrt(torch.sum(v * v, dim=-1))
+    return sqrt_f32(torch.sum(v * v, dim=-1))
 
 
 def _stereo_weight(fb: float, z: torch.Tensor, sigma_d: float) -> torch.Tensor:

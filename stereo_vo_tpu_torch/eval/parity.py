@@ -45,3 +45,107 @@ def frame_differences(got: np.ndarray, want: np.ndarray) -> dict:
         ref = np.maximum(np.abs(want[:, col[k]]), 1e-12)
         out[k] = np.abs(got[:, col[k]] - want[:, col[k]]) / ref
     return out
+
+
+def departures(d: dict, frame: int, traj_tol: float, ba_rtol: float) -> dict:
+    """What departs at ``frame`` of ``frame_differences`` output ``d``: each
+    integer field that differs (by how much), ``"pose"`` when ``dq`` or
+    ``dt`` exceeds ``traj_tol``, and each BA cost beyond relative
+    ``ba_rtol``; empty when the frame holds."""
+    out = {k: int(d[k][frame]) for k in INT_KEYS if d[k][frame]}
+    pose = float(max(d["dq"][frame], d["dt"][frame]))
+    if pose > traj_tol:
+        out["pose"] = pose
+    out.update({k: float(d[k][frame]) for k in BA_KEYS if d[k][frame] > ba_rtol})
+    return out
+
+
+def first_departure(d: dict, traj_tol: float, ba_rtol: float):
+    """``(frame, departures)`` at the first frame of ``d`` that does not
+    hold (see ``departures``), or ``(None, {})`` when every frame holds."""
+    for i in range(len(d["dq"])):
+        what = departures(d, i, traj_tol, ba_rtol)
+        if what:
+            return i, what
+    return None, {}
+
+
+def keyframe_ate(summaries: np.ndarray, gt_poses: np.ndarray):
+    """``(aligned keyframe ATE rmse in metres, keyframe count)`` of a run's
+    summaries against the world's ground-truth poses."""
+    from stereo_vo_tpu_torch.eval.ate import absolute_trajectory_error
+
+    summaries = np.asarray(summaries)
+    kf = summaries[:, 7].astype(bool)
+    gt = np.asarray(gt_poses)[: len(kf)]
+    return absolute_trajectory_error(summaries[kf, :7], gt[kf], align=True)["rmse"], int(kf.sum())
+
+
+def reference_spread(want: np.ndarray, reruns: np.ndarray, traj_tol: float, ba_rtol: float):
+    """The reference's own float32 spread: per frame, the largest departure
+    of its nudged reruns ``reruns [T, N, 19]`` from it (``|difference|`` for
+    the integer fields, ``"pose"`` for ``max(dq, dt)``), and the sorted frames
+    where a rerun first departs."""
+    diffs = [frame_differences(r, want) for r in reruns]
+    out = {k: np.max([np.abs(d[k]) for d in diffs], axis=0) for k in (*INT_KEYS, *BA_KEYS)}
+    out["pose"] = np.max([np.maximum(d["dq"], d["dt"]) for d in diffs], axis=0)
+    firsts = {first_departure(d, traj_tol, ba_rtol)[0] for d in diffs}
+    return out, sorted(f for f in firsts if f is not None)
+
+
+def beyond_spread(what: dict, spread: dict, frame: int, factor: float) -> dict:
+    """The fields of a ``departures`` dict beyond ``factor`` times the
+    reruns' largest departure at ``frame``."""
+    return {k: v for k, v in what.items() if abs(v) > factor * spread[k][frame]}
+
+
+def divergence_hold(got: np.ndarray, want: np.ndarray, reruns: np.ndarray, gt_poses,
+                    traj_tol: float, ba_rtol: float, spread_factor: float,
+                    ate_rtol: float) -> dict:
+    """A run held to the reference by the divergence rule.
+
+    The run holds frame by frame (integer fields equal, pose within
+    ``traj_tol``, BA costs within relative ``ba_rtol``) up to its first
+    departure. That departure may come no earlier than the first of the
+    nudged reruns ``reruns`` (the reference's own float32 spread), and what
+    departs there must lie within ``spread_factor`` times the reruns' largest
+    departure at that frame. From there on the trajectories part, and the run
+    is held by its keyframe count, within the range of the reference runs
+    (``want`` and ``reruns``), and its aligned keyframe ATE, within
+    ``ate_rtol`` of their range.
+
+    Returns a report: the first departure's ``frame`` (None if none), what
+    departed (``departed``) and the reruns' largest departure there
+    (``spread_at_frame``), the reruns' first departures, keyframes and ATE of
+    the run and of the reference runs, and ``failures``, empty when the run
+    holds."""
+    n = len(got)
+    want, reruns = np.asarray(want)[:n], np.asarray(reruns)[:, :n]
+    d = frame_differences(got, want)
+    spread, firsts = reference_spread(want, reruns, traj_tol, ba_rtol)
+    frame, why = first_departure(d, traj_tol, ba_rtol)
+    ate, kf = keyframe_ate(got, gt_poses)
+    ref_runs = [keyframe_ate(s, gt_poses) for s in (want, *reruns)]
+    report = {
+        "frames": n, "frame": frame, "departed": why,
+        "spread_at_frame": ({k: float(spread[k][frame]) for k in why} if why else {}),
+        "reruns_first_departures": firsts, "keyframes": kf, "ate": ate,
+        "reference_keyframes": [r[1] for r in ref_runs],
+        "reference_ate": [r[0] for r in ref_runs], "failures": [],
+    }
+    if frame is None:
+        return report
+    fail = report["failures"]
+    if not firsts or frame < firsts[0]:
+        fail.append(f"departs at frame {frame} ({why}), before the reference departs from "
+                    f"itself ({firsts})")
+    beyond = beyond_spread(why, spread, frame, spread_factor)
+    if beyond:
+        fail.append(f"at frame {frame} beyond {spread_factor} x the reference's own spread: "
+                    f"{beyond}")
+    kfs, ates = report["reference_keyframes"], report["reference_ate"]
+    if not min(kfs) <= kf <= max(kfs):
+        fail.append(f"{kf} keyframes, reference runs {kfs}")
+    if not (1 - ate_rtol) * min(ates) <= ate <= (1 + ate_rtol) * max(ates):
+        fail.append(f"keyframe ATE {ate} m, reference runs {ates}")
+    return report

@@ -27,6 +27,7 @@ import torch
 
 from stereo_vo_tpu_torch.core.camera import CameraInfo
 from stereo_vo_tpu_torch.core.config import FrontendConfig
+from stereo_vo_tpu_torch.core.f32 import sqrt_f32
 from stereo_vo_tpu_torch.core.geometry import (
     make_pose,
     pose_apply,
@@ -60,7 +61,7 @@ def _polar_so3(m: torch.Tensor, iters: int = 8):
     """Project batched 3x3 matrices to SO(3)-scaled form by Newton polar
     iteration ``R <- (R + R^-T)/2``; returns ``(R, scale)`` with ``scale`` the
     signed mean singular value."""
-    norm = torch.sqrt(torch.sum(m * m, dim=(-2, -1), keepdim=True) / 3.0)
+    norm = sqrt_f32(torch.sum(m * m, dim=(-2, -1), keepdim=True) / 3.0)
     r = m / torch.clamp(norm, min=1e-20)
     for _ in range(iters):
         r = 0.5 * (r + _inv3(r).transpose(-1, -2))
@@ -78,11 +79,11 @@ def _nullvec_qr(a: torch.Tensor) -> torch.Tensor:
     vs = []
     for k in range(n - 1):
         x = b[..., k:, k]
-        alpha = torch.sqrt(torch.sum(x * x, dim=-1))
+        alpha = sqrt_f32(torch.sum(x * x, dim=-1))
         sign = torch.where(x[..., 0] >= 0, 1.0, -1.0).to(a.dtype)
         v = x.clone()
         v[..., 0] = v[..., 0] + sign * alpha
-        vn = torch.sqrt(torch.sum(v * v, dim=-1, keepdim=True))
+        vn = sqrt_f32(torch.sum(v * v, dim=-1, keepdim=True))
         v = v / torch.clamp(vn, min=1e-30)
         sub = b[..., k:, k:]
         w = torch.einsum("...i,...ij->...j", v, sub)
@@ -92,7 +93,7 @@ def _nullvec_qr(a: torch.Tensor) -> torch.Tensor:
     r = b
 
     # guard exactly-zero diagonals with a ridge relative to the matrix scale
-    scale = torch.sqrt(torch.sum(a * a, dim=(-2, -1)) / (n * n))
+    scale = sqrt_f32(torch.sum(a * a, dim=(-2, -1)) / (n * n))
     diag = torch.diagonal(r, dim1=-2, dim2=-1)
     eps = (1e-12 * scale)[..., None]
     diag = torch.where(torch.abs(diag) > eps, diag,
@@ -120,7 +121,7 @@ def _nullvec_qr(a: torch.Tensor) -> torch.Tensor:
     z[..., n - 1] = 1.0
     for _ in range(2):
         z = fwd_sub(back_sub(z))
-        z = z / torch.clamp(torch.sqrt(torch.sum(z * z, dim=-1, keepdim=True)), min=1e-30)
+        z = z / torch.clamp(sqrt_f32(torch.sum(z * z, dim=-1, keepdim=True)), min=1e-30)
     for k in range(n - 2, -1, -1):
         v = vs[k]
         zk = z[..., k:]
@@ -140,7 +141,7 @@ def _dlt_pose(p3: torch.Tensor, xn: torch.Tensor):
     """Batched 6-point DLT: world points ``[H, 6, 3]`` + normalized image
     coordinates ``[H, 6, 2]`` -> ``(R [H, 3, 3], t [H, 3], ok [H])``."""
     c = torch.mean(p3, dim=-2)                                          # [H, 3]
-    s = torch.sqrt(torch.mean(torch.sum((p3 - c[..., None, :]) ** 2, dim=-1), dim=-1) / 3.0)
+    s = sqrt_f32(torch.mean(torch.sum((p3 - c[..., None, :]) ** 2, dim=-1), dim=-1) / 3.0)
     s = torch.clamp(s, min=1e-6)
     pn = (p3 - c[..., None, :]) / s[..., None, None]
     ones = torch.ones(p3.shape[:-1] + (1,), dtype=p3.dtype, device=p3.device)
@@ -182,7 +183,7 @@ def _reproj_errors(pose: torch.Tensor, p3: torch.Tensor, uv: torch.Tensor,
     safe_z = torch.where(z > 1e-6, z, 1.0)
     proj = p_cam[..., :2] / safe_z[..., None] * cam.focal + cam.principal_point(p3)
     d = proj - uv
-    err = torch.sqrt(torch.sum(d * d, dim=-1))
+    err = sqrt_f32(torch.sum(d * d, dim=-1))
     return torch.where(z > 1e-6, err, float("inf"))
 
 

@@ -35,6 +35,8 @@ import struct
 
 import torch
 
+from stereo_vo_tpu_torch.core.f32 import fma_f32
+
 MASK32 = 0xFFFFFFFF
 _ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
 _PARITY = 0x1BD11BDA
@@ -95,28 +97,6 @@ _LOG_P = tuple(_f32(c) for c in (7.0376836292e-2, -1.1514610310e-1, 1.1676998740
                                  2.0000714765e-1, -2.4999993993e-1, 3.3333331174e-1))
 _LOG_Q1 = _f32(-2.12194440e-4)
 _LOG_Q2 = _f32(0.693359375)
-
-
-def _f64(x):
-    return x.to(torch.float64) if isinstance(x, torch.Tensor) else x
-
-
-def fma_f32(a: torch.Tensor, b, c) -> torch.Tensor:
-    """``a * b + c`` for a float32 tensor ``a`` and float32 tensors or
-    float32 values ``b``, ``c``, rounded once to float32, as a fused
-    multiply-add instruction rounds it.
-
-    The product is exact in float64; the float64 sum is made round-to-odd
-    from its exact error (TwoSum), and round-to-odd at 53 bits followed by
-    round-to-nearest at 24 bits is the correctly rounded result."""
-    p = a.to(torch.float64) * _f64(b)
-    c = _f64(c)
-    s = p + c
-    bp = s - c
-    err = (p - bp) + (c - (s - bp))
-    # inexact with an even last bit: step to the odd neighbour toward the sum
-    even = (err != 0) & ((s.view(torch.int64) & 1) == 0)
-    return torch.where(even, torch.nextafter(s, err * float("inf")), s).to(torch.float32)
 
 
 def log_f32(x: torch.Tensor) -> torch.Tensor:

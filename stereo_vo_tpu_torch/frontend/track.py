@@ -25,6 +25,7 @@ from typing import NamedTuple, Optional, Tuple
 import torch
 
 from stereo_vo_tpu_torch.core.config import FrontendConfig
+from stereo_vo_tpu_torch.core.f32 import sqrt_f32
 from stereo_vo_tpu_torch.ops.lk import lk_track_fwdbwd, lk_track_pyramid
 
 # sentinel for "no flow estimate yet": always takes the full pyramid
@@ -51,7 +52,7 @@ class TrackStats(NamedTuple):
 
 
 def _norm2(v: torch.Tensor) -> torch.Tensor:
-    return torch.sqrt(torch.sum(v * v, dim=-1))
+    return sqrt_f32(torch.sum(v * v, dim=-1))
 
 
 def _flow_hint(feat_xy, flow_xy, flow_valid):

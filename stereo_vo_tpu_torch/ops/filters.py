@@ -4,12 +4,17 @@ Borders are reflect-101 (OpenCV's BORDER_DEFAULT) unless noted. Images are
 ``[..., H, W]`` float32. Filters are written as the same shifted-add sums as
 the reference, tap by tap in the same order, not as ``conv2d``: that keeps the
 f32 rounding order identical to the reference and keeps cuDNN's TF32 path out.
+Each tap's product is fused into the running sum as XLA's compiled code fuses
+it (``core/f32.py::tap_sum``), so the pyramid's 6/16 tap and Scharr's 3 and
+10 round as in the reference.
 """
 
 from __future__ import annotations
 
 import numpy as np
 import torch
+
+from stereo_vo_tpu_torch.core.f32 import fma_f32, tap_sum
 
 
 def _reflect_index(n: int, r: int, device) -> torch.Tensor:
@@ -45,17 +50,10 @@ def sep_filter(img: torch.Tensor, ky, kx, mode: str = "reflect") -> torch.Tensor
     ry, rx = len(ky) // 2, len(kx) // 2
     p = _pad_axis(img, ry, -2, mode)
     h = img.shape[-2]
-    out = 0
-    for i in range(len(ky)):
-        if ky[i] != 0:
-            out = out + float(ky[i]) * p[..., i : i + h, :]
+    out = tap_sum([(float(ky[i]), p[..., i : i + h, :]) for i in range(len(ky)) if ky[i] != 0])
     p = _pad_axis(out, rx, -1, mode)
     w = img.shape[-1]
-    res = 0
-    for i in range(len(kx)):
-        if kx[i] != 0:
-            res = res + float(kx[i]) * p[..., :, i : i + w]
-    return res
+    return tap_sum([(float(kx[i]), p[..., :, i : i + w]) for i in range(len(kx)) if kx[i] != 0])
 
 
 def sobel_x(img: torch.Tensor, mode: str = "reflect") -> torch.Tensor:
@@ -98,6 +96,27 @@ def box_filter(img: torch.Tensor, radius: int, mode: str = "reflect") -> torch.T
         - ii[..., k : k + h, 0:w]
         + ii[..., 0:h, 0:w]
     )
+
+
+def box_filter_of_product(u: torch.Tensor, v: torch.Tensor, radius: int,
+                          mode: str = "reflect") -> torch.Tensor:
+    """``box_filter(u * v, radius)`` for ``radius <= 3`` as XLA's code
+    computes it when the products share the row pass's fused loop: the first
+    add, of the first two rows' products, fuses the second and rounds the
+    first (LLVM swaps its operands), and each later add fuses its row's
+    product into the running sum; the column pass adds."""
+    if radius > 3:
+        raise ValueError(f"radius {radius} > 3: box_filter sums an integral image")
+    k = 2 * radius + 1
+    pu, pv = _pad_axis(u, radius, -2, mode), _pad_axis(v, radius, -2, mode)
+    h = u.shape[-2]
+    rows = [(pu[..., i : i + h, :], pv[..., i : i + h, :]) for i in range(k)]
+    acc = rows[0][0] * rows[0][1]
+    for a, b in rows[1:]:
+        acc = fma_f32(a, b, acc)
+    p = _pad_axis(acc, radius, -1, mode)
+    w = u.shape[-1]
+    return tap_sum([(1.0, p[..., :, i : i + w]) for i in range(k)])
 
 
 def sliding_sum(padded: torch.Tensor, k: int, dim: int) -> torch.Tensor:

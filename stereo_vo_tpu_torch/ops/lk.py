@@ -37,6 +37,7 @@ from typing import List, Optional
 
 import torch
 
+from stereo_vo_tpu_torch.core.f32 import sqrt_f32
 from stereo_vo_tpu_torch.ops.filters import scharr_x, scharr_y
 from stereo_vo_tpu_torch.ops.regions import extract_regions_ref, pad_edge
 
@@ -115,7 +116,7 @@ def _gn_pass(tpl_reg, it_reg, tpl_pos, guess, active, half, max_iters, eps,
     g22 = torch.sum(gy_p * gy_p, dim=(1, 2))
     tr = g11 + g22
     det = g11 * g22 - g12 * g12
-    min_eig = (tr - torch.sqrt(torch.clamp(tr * tr - 4 * det, min=0.0))) * 0.5
+    min_eig = (tr - sqrt_f32(torch.clamp(tr * tr - 4 * det, min=0.0))) * 0.5
     eig_ok = (min_eig / win_area) >= min_eig_threshold
     det_ok = det > 1e-12
     solvable = eig_ok & det_ok & active

@@ -20,19 +20,26 @@ from typing import Tuple
 
 import torch
 
-from stereo_vo_tpu_torch.ops.filters import box_filter, max_filter, sobel_x, sobel_y
+from stereo_vo_tpu_torch.core.f32 import fma_f32, sqrt_f32
+from stereo_vo_tpu_torch.ops.filters import box_filter_of_product, max_filter, sobel_x, sobel_y
 
 
 def min_eig_response(img: torch.Tensor, block_size: int = 3) -> torch.Tensor:
-    """Per-pixel Shi-Tomasi response (cv::cornerMinEigenVal, relative scale)."""
+    """Per-pixel Shi-Tomasi response (cv::cornerMinEigenVal, relative scale),
+    bit for bit the reference's under ``jax.jit`` on the CPU, single image
+    or ``[K, H, W]`` stack: XLA's code fuses the gradient products into the
+    box filter's row sums, computes the discriminant ``(a - c)^2 + (4 b) b``
+    as ``fma(b, 4 b, (a - c)^2)`` and takes a correctly rounded square
+    root."""
     img = img.to(torch.float32)
     ix = sobel_x(img)
     iy = sobel_y(img)
     r = block_size // 2
-    a = box_filter(ix * ix, r)
-    b = box_filter(ix * iy, r)
-    c = box_filter(iy * iy, r)
-    return ((a + c) - torch.sqrt((a - c) ** 2 + 4.0 * b * b)) * 0.5
+    a = box_filter_of_product(ix, ix, r)
+    b = box_filter_of_product(ix, iy, r)
+    c = box_filter_of_product(iy, iy, r)
+    d = a - c
+    return ((a + c) - sqrt_f32(fma_f32(b, 4.0 * b, d * d))) * 0.5
 
 
 def _inside_mask(h: int, w: int, border: int, device) -> torch.Tensor:

@@ -1,11 +1,16 @@
 """Parity of the port's filters and pyramids with the JAX package.
 
 Tolerance: the port writes every filter as the reference's shifted-add sum,
-tap by tap in the same order, so results are equal to f32 rounding; the
-bound is 1 ulp at the data's magnitude (rtol 2e-7 with a 1e-5 floor for
-values near zero on 0-255 images).
+tap by tap in the same order, with each product fused into the running sum
+as XLA's compiled code fuses it, so the reference here is the JAX function
+under ``jax.jit``, as the engine runs it (op by op, JAX rounds every product
+and Scharr's 3 and 10 taps differ in the last bit at most pixels). Results
+are equal to f32 rounding: bitwise at most shapes, and the bound is 1 ulp at
+the data's magnitude (rtol 2e-7 with a 1e-5 floor for values near zero on
+0-255 images).
 """
 
+import jax
 import numpy as np
 import pytest
 
@@ -16,7 +21,7 @@ from stereo_vo_tpu.ops.pyramid import pyr_down as jax_pyr_down
 from stereo_vo_tpu_torch.ops import filters as tf
 from stereo_vo_tpu_torch.ops.pyramid import build_pyramid, pyr_down
 
-from torch_port_helpers import assert_close, to_jax, to_torch
+from torch_port_helpers import assert_close, assert_equal, to_jax, to_torch
 
 ATOL, RTOL = 1e-5, 2e-7
 
@@ -29,7 +34,7 @@ def _image(rng, h=61, w=83, batch=()):
 @pytest.mark.parametrize("mode", ["reflect", "edge"])
 def test_derivative_filters(rng, name, mode):
     img = _image(rng, batch=(2,))
-    want = getattr(jf, name)(to_jax(img), mode)
+    want = jax.jit(lambda x: getattr(jf, name)(x, mode))(to_jax(img))
     got = getattr(tf, name)(to_torch(img), mode)
     assert_close(got, want, atol=ATOL, rtol=RTOL, what=f"{name}/{mode}")
 
@@ -37,8 +42,8 @@ def test_derivative_filters(rng, name, mode):
 def test_sep_filter_asymmetric_taps(rng):
     img = _image(rng)
     ky, kx = [0.25, -1.0, 0.0, 2.0, 0.5], [1.0, 0.0, -3.0]
-    assert_close(tf.sep_filter(to_torch(img), ky, kx), jf.sep_filter(to_jax(img), ky, kx),
-                 atol=ATOL, rtol=RTOL)
+    want = jax.jit(lambda x: jf.sep_filter(x, ky, kx))(to_jax(img))
+    assert_close(tf.sep_filter(to_torch(img), ky, kx), want, atol=ATOL, rtol=RTOL)
 
 
 @pytest.mark.parametrize("radius", [1, 2, 3])
@@ -77,3 +82,18 @@ def test_build_pyramid(rng):
     assert len(got) == len(want) == 4
     for lvl, (g, w) in enumerate(zip(got, want)):
         assert_close(g, w, atol=ATOL, rtol=RTOL, what=f"level {lvl}")
+
+
+@pytest.mark.parametrize("shape", [(240, 320), (376, 1241)])
+def test_filters_and_pyramid_bitwise_jitted(rng, shape):
+    """At the engine's image sizes the port's filters and pyramid are the
+    jitted reference's bit for bit: each weighted tap fused into the running
+    sum (the pyramid's 6/16 tap rounds, Scharr's 3 and 10 round)."""
+    img = _image(rng, *shape)
+    for name in ("sobel_x", "sobel_y", "scharr_x", "scharr_y"):
+        for mode in ("reflect", "edge"):
+            want = jax.jit(lambda x: getattr(jf, name)(x, mode))(to_jax(img))
+            assert_equal(getattr(tf, name)(to_torch(img), mode), want, f"{name}/{mode}")
+    want = jax.jit(lambda x: jax_build_pyramid(x, 3))(to_jax(img))
+    for lvl, (g, w) in enumerate(zip(build_pyramid(to_torch(img), 3), want)):
+        assert_equal(g, w, f"level {lvl}")

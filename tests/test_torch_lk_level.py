@@ -37,7 +37,15 @@ from stereo_vo_tpu_torch.ops.lk import (
 )
 from stereo_vo_tpu_torch.ops.pyramid import build_pyramid
 
-from torch_port_helpers import assert_close, assert_equal, to_torch
+from torch_port_helpers import (
+    FAST_SHIFTS,
+    assert_close,
+    assert_equal,
+    fast_motion_scene,
+    fast_motion_slots,
+    shifted,
+    to_torch,
+)
 
 POS_TOL = 1e-3
 CENTER_RTOL = 2e-5
@@ -232,3 +240,37 @@ def test_cuda_kernel_matches_plain_version(frames, label, lvl, slack, n):
     torch.cuda.synchronize()
     assert lk_level_pass.launches == before + 2
     _assert_kernel_matches_plain(got, want, bwd)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shift", FAST_SHIFTS)
+def test_cuda_fast_motion_kernel_matches_plain(shift):
+    """The fast-motion sweep of ``test_torch_lk_track.py`` on the card:
+    ``lk_track_fwdbwd`` through the kernel against the same call through the
+    plain version, the same fwd/bwd flags and positions within
+    ``KERNEL_TOL``. At 200 px the top level's guess sits at 25 of
+    ``LK_SLACK_TOP`` = 26 px."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    import stereo_vo_tpu_torch.ops.lk as lk
+    from stereo_vo_tpu_torch.ops.shi_tomasi import detect_corners
+
+    img = torch.from_numpy(fast_motion_scene()).cuda()
+    cur = torch.from_numpy(shifted(fast_motion_scene(), shift)).cuda()
+    xy, _, valid = detect_corners(img, max_corners=128, min_distance=30.0)
+    xy, valid = fast_motion_slots(xy.cpu().numpy(), valid.cpu().numpy(), shift, img.shape[1])
+    args = (build_pyramid(img, 3), build_pyramid(cur, 3), torch.from_numpy(xy).cuda(),
+            torch.from_numpy(valid).cuda())
+    before = lk.lk_level_pass.launches
+    got = lk.lk_track_fwdbwd(*args, window=21, max_iters=30)
+    torch.cuda.synchronize()
+    assert lk.lk_level_pass.launches == before + 8
+    kernel, lk.lk_level_pass = lk.lk_level_pass, lk.lk_level_pass_ref
+    try:
+        want = lk.lk_track_fwdbwd(*args, window=21, max_iters=30)
+    finally:
+        lk.lk_level_pass = kernel
+    assert torch.equal(got[1], want[1]) and torch.equal(got[3], want[3])
+    for i, ok in ((0, want[1]), (2, want[3])):
+        d = (got[i] - want[i]).abs().amax(dim=1)[ok]
+        assert int(ok.sum()) > 0 and float(d.max()) <= KERNEL_TOL["max_px"]

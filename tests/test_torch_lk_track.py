@@ -29,7 +29,16 @@ from stereo_vo_tpu_torch.frontend.track import track_step, tracker_init
 from stereo_vo_tpu_torch.ops.lk import lk_track_fwdbwd
 from stereo_vo_tpu_torch.ops.pyramid import build_pyramid
 
-from torch_port_helpers import assert_close, assert_equal, to_jax, to_torch
+from torch_port_helpers import (
+    FAST_SHIFTS,
+    assert_close,
+    assert_equal,
+    fast_motion_scene,
+    fast_motion_slots,
+    shifted,
+    to_jax,
+    to_torch,
+)
 
 POS_TOL = 1e-3
 FIXDIR = os.path.join(os.path.dirname(__file__), "fixtures", "real")
@@ -109,6 +118,38 @@ def test_lk_fwdbwd_on_photographic_fixtures():
     prev, nxt = _fixture_frames()
     pts, valid = _points(prev, 128)
     _compare_lk(prev, nxt, pts, valid, bwd_levels=2)
+
+
+def _fast_motion_pair(shift):
+    """The fast-motion scene, its copy shifted ``shift`` px, and JAX's
+    corners (``max_corners=128, min_distance=30``) as 128 slots."""
+    img = fast_motion_scene()
+    xy, _, valid = jax_detect(to_jax(img), max_corners=128, min_distance=30.0)
+    return (img, shifted(img, shift), *fast_motion_slots(xy, valid, shift, img.shape[1]))
+
+
+@pytest.mark.parametrize("shift", FAST_SHIFTS)
+def test_fast_motion_matches_jax(shift):
+    """Up to the reference's 200 px parallax limit, where the top level's
+    guess sits at 25 of ``LK_SLACK_TOP`` = 26 px: the same fwd/bwd flags as
+    JAX's LK, positions within ``POS_TOL``, and the survivors on the known
+    shift."""
+    img, cur, pts, valid = _fast_motion_pair(shift)
+    jp, jn = jax_build_pyramid(to_jax(img), 3), jax_build_pyramid(to_jax(cur), 3)
+    want = _jax_lk(4, window=21, max_iters=30)(list(jp), list(jn), to_jax(pts), to_jax(valid),
+                                               None)
+    tracked, fwd_ok, back, bwd_ok = lk_track_fwdbwd(
+        build_pyramid(to_torch(img), 3), build_pyramid(to_torch(cur), 3), to_torch(pts),
+        to_torch(valid), window=21, max_iters=30)
+    assert_equal(fwd_ok, want[1], f"fwd_ok at {shift} px")
+    assert_equal(bwd_ok, want[3], f"bwd_ok at {shift} px")
+    ok, bok = np.asarray(want[1]), np.asarray(want[3])
+    assert_close(tracked.numpy()[ok], np.asarray(want[0])[ok], atol=POS_TOL, what="tracked")
+    assert_close(back.numpy()[bok], np.asarray(want[2])[bok], atol=POS_TOL, what="back")
+    survivors = ok & valid
+    assert survivors.sum() >= 20, f"{survivors.sum()} survivors at {shift} px"
+    err = np.abs(tracked.numpy()[survivors, 0] - (pts[survivors, 0] + shift))
+    assert np.median(err) < 1.0, f"median error {np.median(err):.3f} px at {shift} px"
 
 
 def _tracker_pair(pyr_np, xy, ids, valid, flow=None, flow_valid=None, pred_err=None):

@@ -145,16 +145,26 @@ def test_fixture_draws_match_sample_hypotheses():
         np.testing.assert_array_equal(got.numpy(), want, err_msg=f"seed {seed}")
 
 
+PHOTO_FIXTURES = ("kitti00_photo_s11_w161_c32.npz", "kitti00_photo_s23_w161_c32.npz")
+
+
 def test_fixtures_are_small_and_describe_their_worlds():
     files = sorted(os.listdir(FIXTURES))
-    assert {"kitti00_w20.npz", "kitti00_w129_c64.npz", "pnp_draws.npz"} <= set(files)
+    assert {"kitti00_w20.npz", "kitti00_w129_c64.npz", "pnp_draws.npz",
+            *PHOTO_FIXTURES} <= set(files)
     assert sum(os.path.getsize(os.path.join(FIXTURES, f)) for f in files) < FIXTURE_BYTES
-    for name, n_frames, chunk in (("kitti00_w20.npz", 20, 0), ("kitti00_w129_c64.npz", 129, 64)):
+    for name, n_frames, chunk in (("kitti00_w20.npz", 20, 0), ("kitti00_w129_c64.npz", 129, 64),
+                                  *((p, 161, 32) for p in PHOTO_FIXTURES)):
         ref = _fixture(name)
         assert int(ref["n_frames"]) == n_frames and int(ref["chunk_size"]) == chunk
         assert ref["summaries"].shape == (n_frames, 19) and np.isfinite(ref["summaries"]).all()
         assert tuple(ref["shape"]) == (376, 1241) and str(ref["config"]) == "kitti00"
         assert str(ref["jax_version"]) and ref["summaries"][:, 7].sum() >= 20
+    for name in PHOTO_FIXTURES:
+        ref = _fixture(name)
+        assert str(ref["texture"]) == "grace_hopper" and int(ref["n_points"]) == 3000
+        assert ref["spread_summaries"].shape == (3, 161, 19)
+        assert np.isfinite(ref["spread_summaries"]).all()
 
 
 @pytest.mark.slow
@@ -170,6 +180,9 @@ def test_reference_fixture_regenerates(tmp_path):
     assert gen.main(["--out", str(tmp_path)]) == 0
     for name in sorted(os.listdir(FIXTURES)):
         new, old = np.load(tmp_path / name), _fixture(name)
+        if "spread_summaries" in old:
+            np.testing.assert_allclose(new["spread_summaries"], old["spread_summaries"],
+                                       rtol=1e-6, atol=1e-6, err_msg=name)
         if name == "pnp_draws.npz":
             for k in ("valid", "seeds", "indices"):
                 np.testing.assert_array_equal(new[k], old[k], err_msg=k)

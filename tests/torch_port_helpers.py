@@ -167,3 +167,33 @@ def jax_pnp_indices_batch(valids, seeds, n_hyp: int, k: int) -> np.ndarray:
     draw = jax.jit(jax.vmap(lambda v, s: _jax_draw(v, s, n_hyp, k)))
     idx = draw(jnp.asarray(np.asarray(valids)), jnp.asarray(np.asarray(seeds, np.uint32)))
     return np.asarray(idx).astype(np.int64)
+
+
+FAST_SHIFTS = (40, 100, 160, 200)
+
+
+def fast_motion_scene():
+    """``tests/test_lk_fast_motion.py``'s scene: a unique band-limited
+    texture at 376x1241 (uint8 values as float32), through the port's copy of
+    the JAX package's noise generator."""
+    from stereo_vo_tpu_torch.data.synthetic import _smooth_noise
+
+    rng = np.random.default_rng(3)
+    img = np.clip(128.0 + _smooth_noise(rng, 376, 1241, octaves=5, amp=55.0), 0, 255)
+    return img.astype(np.uint8).astype(np.float32)
+
+
+def shifted(img, shift: int):
+    """``img`` moved ``shift`` px to the right, zeros entering on the left."""
+    cur = np.zeros_like(img)
+    cur[:, shift:] = img[:, : img.shape[1] - shift]
+    return cur
+
+
+def fast_motion_slots(xy, valid, shift: int, width: int):
+    """Corner slots whose target stays 30 px inside the frame; the others
+    invalid at an arbitrary position, as the tracker's are."""
+    xy, valid = np.array(xy, np.float32), np.array(valid, bool)
+    valid &= xy[:, 0] + shift < width - 30
+    xy[~valid] = np.array([5.0, 7.0], np.float32)
+    return xy, valid
