@@ -11,10 +11,10 @@ JAX or of the JAX package. Phases, each fatal on failure:
    CUDA version; switch TF32 off; load the photo texture the port ships
    (``data/grace_hopper.jpg``, no matplotlib on the card's machine) and
    print its shape;
-2. build: compile the three CUDA sources, ``stereo_vo_tpu_torch/csrc/
-   extract_regions.cu``, ``lk_level.cu`` and ``stereo_bm_at.cu``, one nvcc
-   each, started together, and print each build's seconds and what ptxas
-   reports;
+2. build: compile the four CUDA sources, ``stereo_vo_tpu_torch/csrc/
+   extract_regions.cu``, ``lk_level.cu``, ``stereo_bm_at.cu`` and
+   ``greedy_nms.cu``, one nvcc each, started together, and print each
+   build's seconds and what ptxas reports;
 3. region-extraction kernel check: the kernel against its plain PyTorch
    version (``extract_regions_ref``) at the shapes the main path gives it,
    at a stack over 6 MiB (where the JAX package takes its tiled variant) and
@@ -51,17 +51,28 @@ JAX or of the JAX package. Phases, each fatal on failure:
    (CUDA events, median of 20 samples), the kernel's device time per call
    read from ``torch.profiler``, beside the bound from this run's bytes and
    operations (no one PyTorch call computes sparse BM: no library time);
+3d. greedy-NMS kernel check: ``greedy_nms`` against ``greedy_nms_ref`` on the
+   candidate pools of frames 0-4 of phase 4's world and of frame 0 of the
+   photo world, on 1024 valid candidates in one conflict chain, on none
+   valid and on clusters at the image corners, bitwise, one launch per
+   call; each call timed, the plain version too, the kernel's device time
+   per launch from ``torch.profiler``, beside the bound (10 B per candidate
+   or one pair test per pair of valid candidates; no library time);
 4. main path: ``run_vo`` over a 20-frame synthetic KITTI-sized world
    (376x1241, ``kitti00`` intrinsics, default capacities) on ``cuda``, with
    the kernels' launch counters zeroed just before and read just after; it
    checks the poses (20, finite), at least 2 keyframes after bootstrap, the
    median tracked count over the steps (> 50), PnP on every accepted frame,
    exactly one ``lk_level_pass`` launch per LK level pass (forward plus
-   backward), exactly one ``stereo_bm_at`` launch per keyframe (bootstrap
-   included) and no ``extract_regions`` launch, and the aligned keyframe
-   ATE; then (4b) ``utils.profiling.profile_keyframes`` streams the same
-   world and profiles steps 8-11: launches, syncs and device ms per keyframe
-   step, the BM kernel's launches in the device trace, step p50; then the
+   backward), exactly one ``stereo_bm_at`` and one ``greedy_nms`` launch per
+   keyframe (bootstrap included) and no ``extract_regions`` launch, and the
+   aligned keyframe ATE; the keyframe branch runs from CUDA graphs (the
+   engine's default on the card) here and in every later phase; then (4b)
+   ``utils.profiling.profile_keyframes`` streams the same world and profiles
+   steps 8-11: kernel and graph launches, syncs and device ms per keyframe
+   step, each kernel's launches in the device trace equal to its wrapper's
+   count, at most ``BRANCH_SYNCS_MAX`` syncs inside each keyframe branch,
+   step p50; then the
    Shi-Tomasi response on frame 0 of the photo world (phase 5b's): the pixels
    where the card's differs from the CPU's (want 0, single image and a stack
    of three), and its device time per frame beside the former formula's;
@@ -76,6 +87,14 @@ JAX or of the JAX package. Phases, each fatal on failure:
    ``torch.cuda.set_sync_debug_mode("error")`` (any host sync raises), on
    the stored valid masks of ``pnp_draws.npz``: the stored JAX indices,
    bitwise; and its host ms per draw;
+4d. graphs against eager: the same 20 frames streamed by an engine with
+   ``graphs=True`` and one with ``graphs=False``: every summary (pose
+   included) and the final state bitwise equal; steps 8-19 of the graph run
+   profiled: at most ``BRANCH_SYNCS_MAX`` host syncs inside each keyframe
+   branch (its ``record_function`` range), each kernel's launches in the
+   trace equal to its wrapper's count, one BM and one NMS launch per
+   keyframe; each stretch's replays and launches per replay, both runs' step
+   p50;
 5. chunked replay with preload: ``run_vo(chunk_size=64, preload_device=True,
    checkpoint_every=65, out_dir=...)`` on ``cuda`` over the bench's
    129-frame world (bootstrap + two chunks of 64; same parameters as
@@ -139,8 +158,8 @@ counted). The line before the last is the kernels' JSON record, with
 launches summed over phases 4-6 and 8b, the headline shape's times
 (extraction: 160 regions of 56x56 at level 0; LK: the level-0 forward pass,
 56x56, N = 160; sparse BM: the 748-slot keyframe input at <= 320 valid on
-the synthetic frame), each call's time and its kernel's device time per
-launch, and bounds; the last line is ``{"ok": true,
+the synthetic frame; greedy NMS: frame 0's candidate pool), each call's
+time and its kernel's device time per launch, and bounds; the last line is ``{"ok": true,
 "device": {...}}``. Without a CUDA device, or without the package beside it,
 the script exits non-zero before printing any result.
 """
@@ -294,6 +313,12 @@ FAST_SHIFTS = (40, 100, 160, 200)
 BM_SETS = ("bootstrap_n300", "keyframe_n748_le320", "keyframe_n748_all_valid",
            "all_invalid_n748", "empty_n0")
 BM_HEADLINE = "synthetic keyframe_n748_le320"
+# phase 3d: the headline greedy-NMS set (frame 0's candidate pool)
+NMS_HEADLINE = "billboard0"
+# phase 4d: host syncs allowed inside one keyframe branch (PnP's ok and the
+# compaction choice are its only reads), and the steps it profiles
+BRANCH_SYNCS_MAX = 3
+GRAPH_PROFILED = (8, 20)
 # the card's published rates (H100 SXM): HBM bytes/s and f32 FLOP/s outside
 # the tensor cores
 HBM_BYTES_PER_S = 3.35e12
@@ -353,31 +378,37 @@ def _lk_passes(cfg, steps) -> int:
                for s in steps)
 
 
-def _zero_launches() -> None:
+def _wrappers() -> dict:
+    """Each hand kernel's wrapper, by the name the kernels line gives it."""
     from stereo_vo_tpu_torch.ops.lk import lk_level_pass
     from stereo_vo_tpu_torch.ops.regions import extract_regions
+    from stereo_vo_tpu_torch.ops.shi_tomasi import greedy_nms
     from stereo_vo_tpu_torch.ops.stereo_bm import stereo_bm_at
 
-    lk_level_pass.launches = stereo_bm_at.launches = extract_regions.launches = 0
+    return {"lk_level_pass": lk_level_pass, "stereo_bm_at": stereo_bm_at,
+            "extract_regions": extract_regions, "greedy_nms": greedy_nms}
+
+
+def _zero_launches() -> None:
+    for wrapper in _wrappers().values():
+        wrapper.launches = 0
 
 
 def _launches() -> dict:
-    from stereo_vo_tpu_torch.ops.lk import lk_level_pass
-    from stereo_vo_tpu_torch.ops.regions import extract_regions
-    from stereo_vo_tpu_torch.ops.stereo_bm import stereo_bm_at
-
-    return {"lk_level_pass": lk_level_pass.launches, "stereo_bm_at": stereo_bm_at.launches,
-            "extract_regions": extract_regions.launches}
+    return {name: wrapper.launches for name, wrapper in _wrappers().items()}
 
 
 def _check_launches(what, launches, lk_want, keyframes) -> None:
-    """One kernel launch per LK level pass, one sparse-BM launch per
-    keyframe and no region extraction, exactly."""
+    """One kernel launch per LK level pass, one sparse-BM and one greedy-NMS
+    launch per keyframe and no region extraction, exactly."""
     lk, bm, er = launches["lk_level_pass"], launches["stereo_bm_at"], launches["extract_regions"]
+    nms = launches["greedy_nms"]
     _log(f"{what}: lk_level_pass launches {lk} for {lk_want} LK level passes, "
-         f"stereo_bm_at launches {bm} for {keyframes} keyframes, extract_regions launches {er}")
+         f"stereo_bm_at launches {bm} and greedy_nms launches {nms} for {keyframes} keyframes, "
+         f"extract_regions launches {er}")
     _check(lk == lk_want > 0, f"{what}: {lk} lk_level_pass launches for {lk_want} passes")
     _check(bm == keyframes, f"{what}: {bm} stereo_bm_at launches for {keyframes} keyframes")
+    _check(nms == keyframes, f"{what}: {nms} greedy_nms launches for {keyframes} keyframes")
     _check(er == 0, f"{what}: {er} extract_regions launches")
 
 
@@ -792,6 +823,204 @@ def _bm_kernel_check(torch, cfg, pairs, dev) -> dict:
                 head = {"ms": k_ms, "device_ms": dev_us / 1e3, "plain_ms": p_ms,
                         "bound_ms": bound, "bound_by": bound_by}
     return {**head, "max_abs_err": max_err}
+
+
+def _nms_sets(torch, cfg, world, photo, dev) -> dict:
+    """Phase 3d's inputs: ``{set: (cxy, cvalid, r2)}`` on the card, the
+    candidate pools of frames 0-4 of the 20-frame world and of a photo frame,
+    1024 valid candidates in one conflict chain (each conflicts with its
+    neighbours only), 1024 with none valid, and clusters at the corners of a
+    376x1241 frame."""
+    from stereo_vo_tpu_torch.ops.shi_tomasi import corner_candidates
+
+    fc = cfg.frontend
+    r2 = fc.min_distance * fc.min_distance
+    sets = {}
+    for i in range(5):
+        img = torch.from_numpy(world.render(i)[0]).to(dev).to(torch.float32)
+        cxy, cvals = corner_candidates(img, fc.quality_level, fc.min_distance,
+                                       fc.detect_block_size)
+        sets[f"billboard{i}"] = (cxy, cvals > 0, r2)
+    cxy, cvals = corner_candidates(torch.from_numpy(photo).to(dev).to(torch.float32),
+                                   fc.quality_level, fc.min_distance, fc.detect_block_size)
+    sets["photo0"] = (cxy, cvals > 0, r2)
+    x = torch.arange(1024, dtype=torch.float32, device=dev)
+    ones = torch.ones(1024, dtype=torch.bool, device=dev)
+    sets["chain1024"] = (torch.stack([x, torch.full_like(x, 7.0)], 1), ones, 4.0)
+    gen = torch.Generator(device="cpu").manual_seed(0)
+    pts = (torch.rand((1024, 2), generator=gen) * 1000).floor().to(dev)
+    sets["none_valid"] = (pts, torch.zeros_like(ones), r2)
+    corners = torch.tensor([[0.0, 0.0], [1240.0, 0.0], [0.0, 375.0], [1240.0, 375.0]])
+    off = torch.randint(0, 40, (1024, 2), generator=gen).to(torch.float32)
+    k = torch.arange(1024) % 4
+    cxy = corners[k] + off * torch.where(corners > 0, -1.0, 1.0)[k]
+    sets["corners"] = (cxy.to(dev), (torch.rand(1024, generator=gen) < 0.9).to(dev), r2)
+    return sets
+
+
+def _nms_check(torch, cfg, world, photo, dev) -> dict:
+    """Phase 3d: ``greedy_nms`` against ``greedy_nms_ref`` on the card at the
+    sets of ``_nms_sets``, bitwise, one launch per call; each call timed
+    (CUDA events) beside the plain version, the kernel's device time per
+    launch from ``torch.profiler`` and the bound. Returns the headline's
+    record and the largest difference (in accepted flags)."""
+    from stereo_vo_tpu_torch.ops.shi_tomasi import greedy_nms, greedy_nms_ref
+
+    head, max_err = None, 0.0
+    for name, (cxy, cvalid, r2) in _nms_sets(torch, cfg, world, photo, dev).items():
+        before = greedy_nms.launches
+        got = greedy_nms(cxy, cvalid, r2)
+        torch.cuda.synchronize()
+        _check(greedy_nms.launches == before + 1, f"greedy_nms: one launch at {name}")
+        want = greedy_nms_ref(cxy, cvalid, r2)
+        max_err = max(max_err, float((got.float() - want.float()).abs().max()))
+        _check(torch.equal(got, want), f"greedy_nms equals its plain version at {name}")
+        if name == "chain1024":
+            _check(torch.equal(got.cpu(), torch.arange(1024) % 2 == 0), "chain: every other one")
+        call = lambda: greedy_nms(cxy, cvalid, r2)
+        k_ms = _time_ms(torch, call)
+        dev_us = _device_us(torch, call, "greedy_nms_kernel", greedy_nms)
+        p_ms = _time_ms(torch, lambda: greedy_nms_ref(cxy, cvalid, r2), samples=5, inner=2)
+        c, n_valid = cxy.shape[0], int(cvalid.sum())
+        # bytes: 9 in and 1 out per candidate; operations: one pair test per
+        # pair of valid candidates
+        bound, bound_by = _bound_ms(10 * c, float(n_valid) ** 2)
+        _log(f"check greedy_nms {name}: {c} candidates, {n_valid} valid, {int(got.sum())} "
+             f"accepted, bitwise equal; call {k_ms * 1e3:.1f} us ({dev_us:.2f} us of it on the "
+             f"device), plain {p_ms * 1e3:.1f} us, bound {bound * 1e3:.4f} us ({bound_by})")
+        if name == NMS_HEADLINE:
+            head = {"ms": k_ms, "device_ms": dev_us / 1e3, "plain_ms": p_ms,
+                    "bound_ms": bound, "bound_by": bound_by}
+    return {**head, "max_abs_err": max_err}
+
+
+def _stream_profiled(torch, cfg, frames, dev, graphs):
+    """Phase 4d's run: ``frames`` streamed by a fresh engine, steps
+    ``GRAPH_PROFILED`` under ``torch.profiler``, the windows that the
+    bundle adjustments of those steps start from recorded. Returns
+    ``(summaries, state, engine, prof, wrapper launches over the profiled
+    steps, keyframes there, [(window, compact), ...])``."""
+    from stereo_vo_tpu_torch.engine import step as step_module
+    from stereo_vo_tpu_torch.engine.step import VOEngine, parse_summary
+    from stereo_vo_tpu_torch.utils.profiling import PORT_KERNELS, device_trace, wrapper_launches
+
+    engine = VOEngine(cfg, IMAGE_SHAPE, device=dev, graphs=graphs)
+    state, out = engine.bootstrap(engine.init_state(), frames[0].left, frames[0].right)
+    rows, kf, windows = [out.summary.cpu()], 0, []
+    first, end = GRAPH_PROFILED
+    solve = step_module.bundle_adjust
+
+    def recording(window, cam, bcfg, compact=None):
+        windows.append((window, compact))
+        return solve(window, cam, bcfg, compact=compact)
+
+    for i in range(1, first):
+        state, out = engine.step(state, frames[i].left, frames[i].right)
+        rows.append(out.summary.cpu())
+    before = wrapper_launches()
+    with device_trace() as prof:
+        for i in range(first, end):
+            if not graphs and i < first + 4:
+                step_module.bundle_adjust = recording
+            try:
+                state, out = engine.step(state, frames[i].left, frames[i].right)
+            finally:
+                step_module.bundle_adjust = solve
+            rows.append(out.summary.cpu())
+            kf += int(parse_summary(rows[-1])[1]["is_keyframe"])
+    after = wrapper_launches()
+    counted = {k: after[k] - before[k] for k in PORT_KERNELS}
+    return torch.stack(rows), state, engine, prof, counted, kf, windows
+
+
+def _lm_masking(torch, cfg, windows) -> dict:
+    """Phase 4d: the device time of the masked LM bodies after ``done``, on
+    the windows the bundle adjustments of steps 8-11 start from: each solve
+    as the engine runs it (``lm_trip(max_lm_iters)`` bodies) against the same
+    solve cut to the bodies its own stop needed (``max_lm_iters`` set to the
+    reference's ``it``), device time from ``torch.profiler``."""
+    import dataclasses
+
+    from stereo_vo_tpu_torch.backend import schur
+
+    rows, run = [], schur._lm_run
+    for window, compact in windows:
+        its = []
+
+        def counting(*args, **kwargs):
+            out = run(*args, **kwargs)
+            its.append(int(out[7]))
+            return out
+
+        schur._lm_run = counting
+        try:
+            schur.bundle_adjust(window, cfg.camera, cfg.backend, compact=compact)
+        finally:
+            schur._lm_run = run
+        cut = dataclasses.replace(cfg.backend, max_lm_iters=max(its[0], 1))
+        full_ms = _device_ms_all(
+            torch, lambda: schur.bundle_adjust(window, cfg.camera, cfg.backend, compact=compact),
+            calls=2)
+        cut_ms = _device_ms_all(
+            torch, lambda: schur.bundle_adjust(window, cfg.camera, cut, compact=compact), calls=2)
+        rows.append({"compact": compact, "it": its[0],
+                     "bodies": schur.lm_trip(cfg.backend.max_lm_iters),
+                     "bodies_to_done": schur.lm_trip(max(its[0], 1)),
+                     "ba_device_ms": full_ms, "ba_device_ms_to_done": cut_ms,
+                     "masked_device_ms": full_ms - cut_ms})
+    return {"solves": rows,
+            "masked_device_ms_median": statistics.median(r["masked_device_ms"] for r in rows)}
+
+
+def _graph_phase(torch, cfg, frames, dev) -> dict:
+    """Phase 4d: the 20-frame world streamed with the keyframe branch
+    replayed from CUDA graphs and run eagerly; every summary and the final
+    state bitwise equal; steps ``GRAPH_PROFILED`` of each run under
+    ``torch.profiler``: in the graph run at most ``BRANCH_SYNCS_MAX`` host
+    syncs in each keyframe branch (its profiler range), the wrappers'
+    launches equal to the kernels in the trace; and the masked LM bodies'
+    device time per keyframe (``_lm_masking``)."""
+    import numpy as np
+
+    from stereo_vo_tpu_torch.engine.graphs import flatten
+    from stereo_vo_tpu_torch.utils.profiling import BRANCH_RANGE, PORT_KERNELS, _trace_counts
+
+    n = GRAPH_PROFILED[1] - GRAPH_PROFILED[0]
+    g_rows, g_state, g_engine, g_prof, counted, kf, _ = _stream_profiled(
+        torch, cfg, frames, dev, True)
+    e_rows, e_state, _, e_prof, e_counted, _, windows = _stream_profiled(
+        torch, cfg, frames, dev, False)
+    same_rows = int(sum(bool(torch.equal(a, b)) for a, b in zip(g_rows, e_rows)))
+    g_leaves, _ = flatten(g_state)
+    e_leaves, _ = flatten(e_state)
+    same_state = all(torch.equal(a, b) for a, b in zip(g_leaves, e_leaves))
+    trace = _trace_counts(g_prof, n, counted)
+    eager = _trace_counts(e_prof, n, e_counted)
+    branch_syncs = [b["syncs"] for b in trace["keyframe_branches"]]
+    stretches = {name: {"replays": st.replays,
+                        "launches_per_replay": {w.__name__: c for w, c in st.launches.items()}}
+                 for name, st in g_engine.stretches.items()}
+    out = {"frames": len(frames), "summaries_bitwise_equal": same_rows,
+           "final_state_bitwise_equal": same_state, "stretches": stretches,
+           "keyframes_profiled": kf, "branch_syncs": branch_syncs,
+           "branch_calls": trace["keyframe_branches"],
+           "graphs": {k: v for k, v in trace.items() if k != "keyframe_branches"},
+           "eager": {k: v for k, v in eager.items() if k != "keyframe_branches"},
+           "eager_branch_syncs": [b["syncs"] for b in eager["keyframe_branches"]],
+           "lm_masking": _lm_masking(torch, cfg, windows)}
+    _log("graphs vs eager, 20-frame world: " + json.dumps(out))
+    _check(same_rows == len(frames), f"graph and eager summaries equal on {same_rows} frames")
+    _check(same_state, "graph and eager final states bitwise equal")
+    _check(len(branch_syncs) == kf > 0, f"{len(branch_syncs)} {BRANCH_RANGE} ranges, {kf} kf")
+    _check(max(branch_syncs) <= BRANCH_SYNCS_MAX, f"host syncs per keyframe branch {branch_syncs}")
+    for kernel in PORT_KERNELS:
+        _check(trace["kernel_launches"][kernel] == counted[kernel],
+               f"{kernel}: {counted[kernel]} counted launches, "
+               f"{trace['kernel_launches'][kernel]} in the trace")
+    _check(counted["stereo_bm_at_kernel"] == counted["greedy_nms_kernel"] == kf,
+           f"one BM and one NMS launch per profiled keyframe: {counted}")
+    _check(np.isfinite(g_rows.numpy()).all(), "finite summaries")
+    return out
 
 
 def _device_us(torch, fn, kernel, wrapper, calls=10, tries=4):
@@ -1336,7 +1565,7 @@ def main() -> int:
          f"matplotlib importable: {importlib.util.find_spec('matplotlib') is not None}")
 
     # ---- 2. build
-    _build_all(cuda_build, ("extract_regions", "lk_level", "stereo_bm_at"))
+    _build_all(cuda_build, ("extract_regions", "lk_level", "stereo_bm_at", "greedy_nms"))
 
     # ---- 3. the region-extraction kernel against its plain version
     max_err, timings = _extraction_check(torch, dev)
@@ -1358,6 +1587,12 @@ def main() -> int:
                          REAL_SEQUENCE)
     bm_record = _bm_kernel_check(torch, cfg, [("synthetic", *world_frames[:2]),
                                               ("real", real[0], real[1])], dev)
+
+    # ---- 3d. the greedy-NMS kernel against its plain version
+    photo_world = SyntheticStereoSequence(cam=cfg.camera, shape=IMAGE_SHAPE, seed=PHOTO_SEEDS[0],
+                                          texture=photo, **PHOTO_WORLD)
+    photo0 = photo_world.render(0)[0]
+    nms_record = _nms_check(torch, cfg, world, photo0, dev)
 
     # ---- 4. the main path
     _zero_launches()
@@ -1398,17 +1633,24 @@ def main() -> int:
 
     prof = profile_keyframes(cfg, world_frames, dev)
     _log("profile, keyframe steps 8-11 streamed: " + json.dumps(prof))
-    photo_world = SyntheticStereoSequence(cam=cfg.camera, shape=IMAGE_SHAPE, seed=PHOTO_SEEDS[0],
-                                          texture=photo, **PHOTO_WORLD)
-    _response_check(torch, photo_world.render(0)[0], dev)
+    _response_check(torch, photo0, dev)
     bm_traced = prof["kernel_launches"]["stereo_bm_at_kernel"]
     _check(prof["keyframes_profiled"] > 0 and bm_traced == prof["keyframes_profiled"],
            f"the profiled keyframe steps ran the BM kernel once each: {bm_traced}")
     _check(prof["kernel_launches"]["extract_regions_kernel"] == 0, "no region extraction")
+    _check(prof["kernel_launches"] == prof["wrapper_launches"],
+           f"the wrappers' launches {prof['wrapper_launches']} are the trace's "
+           f"{prof['kernel_launches']}")
+    _check(len(prof["keyframe_branches"]) == prof["keyframes_profiled"]
+           and all(b["syncs"] <= BRANCH_SYNCS_MAX for b in prof["keyframe_branches"]),
+           f"host syncs per keyframe branch: {prof['keyframe_branches']}")
 
     # ---- 4c. phase 4's run and the PnP draw held to the JAX package's
     _hold_to_reference("main path", run, "kitti00_w20.npz", TRAJ_TOL_CARD)
     _sampler_check(torch, dev)
+
+    # ---- 4d. the keyframe branch from CUDA graphs against the eager branch
+    _graph_phase(torch, cfg, world_frames, dev)
 
     phase_launches.update(_offline_phases(cfg, dev))
 
@@ -1451,6 +1693,14 @@ def main() -> int:
         "replaces": "stereo_vo_tpu/ops/pallas_extract.py:168 with stereo_vo_tpu/ops/stereo_bm.py:176",
         "launches": total("stereo_bm_at"),
         **bm_record,
+        "library_ms": None,
+    }, {
+        "name": "greedy_nms",
+        "route": "cuda",
+        "source": "stereo_vo_tpu_torch/csrc/greedy_nms.cu",
+        "replaces": "stereo_vo_tpu/ops/shi_tomasi.py:221 (XLA while_loop)",
+        "launches": total("greedy_nms"),
+        **nms_record,
         "library_ms": None,
     }]}), flush=True)
     print(json.dumps({"ok": True, "device": {

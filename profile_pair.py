@@ -46,7 +46,7 @@ def _turn(tree: str) -> None:
 
     import stereo_vo_tpu_torch
     from stereo_vo_tpu_torch.core.config import load_config
-    from stereo_vo_tpu_torch.data.synthetic import SyntheticStereoSequence
+    from stereo_vo_tpu_torch.data.synthetic import SyntheticStereoSequence, load_sample_photo
     from stereo_vo_tpu_torch.engine.driver import run_vo
     from stereo_vo_tpu_torch.ops.stereo_bm import stereo_bm_at
 
@@ -71,8 +71,13 @@ def _turn(tree: str) -> None:
         block_size=fc.bm_block_size, prefilter_cap=fc.bm_prefilter_cap,
         texture_threshold=fc.bm_texture_threshold, uniqueness_ratio=fc.bm_uniqueness_ratio,
         compact_slots=fc.bm_compact_slots))
+    photo = list(SyntheticStereoSequence(cam=cfg.camera, shape=(376, 1241), seed=11,
+                                         texture=load_sample_photo(), **smoke.PHOTO_WORLD))
+    photo_run = run_vo(iter(photo), cfg, chunk_size=smoke.PHOTO_CHUNK, preload_device=True,
+                       device=dev)
     print(json.dumps({"package": os.path.dirname(stereo_vo_tpu_torch.__file__),
-                      "chunked_frames_per_s": run.frames_per_sec, **row,
+                      "chunked_frames_per_s": run.frames_per_sec,
+                      "photo_s11_chunked_frames_per_s": photo_run.frames_per_sec, **row,
                       "keyframe": keyframe,
                       "stereo_bm_at_748_ms": bm_ms, "stereo_bm_at_748_valid": int(valid.sum())}),
           flush=True)

@@ -14,18 +14,21 @@
 - Nielsen gain-ratio damping, the oldest pose held as gauge; exits on the
   relative tolerance, a flat rejected step, or saturated damping; the damping
   λ is warm-started across solves from ``WindowState.ba_lam``.
-- The λ-free system is rebuilt only after an accepted step.
+- The λ-free system is kept from the last accepted step.
 
-The LM loop runs in Python with one host sync per iteration (the accept test);
-it executes iterations in pairs like the reference's unrolled loop, so the
-iteration count matches it exactly.
+The LM loop is the reference's masked carry: a fixed trip of bodies, every
+decision a ``torch.where`` on the device, so it reads nothing back to the
+host and a CUDA graph can capture it (``lm_loop``). The choice between the
+compacted and the full solve is the one host read, and the caller can make
+it (``bundle_adjust(compact=...)``).
 
 Landmark sharding (``parallel/sharded_ba.py``): given a process group, each
 rank holds a contiguous block of landmarks and ``lm_loop`` all-reduces (sum)
 at the reference's ``psum`` points: the cost, the pose blocks ``u_blocks``
 and ``g_p`` of each build, the ``[6W+1, 6W+1]`` Schur block of each damped
-reduction, and the landmark half of the predicted decrease. Every rank then
-branches on the same reduced numbers. Without a group nothing changes.
+reduction, and the landmark half of the predicted decrease. Every rank runs
+the same fixed trip on the same reduced numbers, so the ranks stay in
+lockstep. Without a group nothing changes.
 """
 
 from __future__ import annotations
@@ -108,20 +111,22 @@ class LandmarkMajorProblem(NamedTuple):
 
 
 def window_to_landmark_major(window: WindowState) -> LandmarkMajorProblem:
-    """Scatter the pose-major observations into landmark-major arrays."""
+    """Scatter the pose-major observations into landmark-major arrays, at
+    fixed shapes: invalid observations go to a dump row past the last
+    landmark, which is cut off (the reference's ``mode="drop"``)."""
     lcap = window.landmark_capacity
     w, f = window.obs_valid.shape
     dev = window.obs_uv.device
     w_idx = torch.arange(w, device=dev)[:, None].expand(w, f)
-    sel = window.obs_valid
-    lm_idx = window.obs_lm[sel].to(torch.int64)
-    obs_uv = torch.zeros((lcap, w, 2), dtype=window.obs_uv.dtype, device=dev)
-    obs_uv[lm_idx, w_idx[sel]] = window.obs_uv[sel]
-    obs_valid = torch.zeros((lcap, w), dtype=torch.bool, device=dev)
-    obs_valid[lm_idx, w_idx[sel]] = True
+    lm_idx = torch.where(window.obs_valid, window.obs_lm.to(torch.int64), lcap)
+    obs_uv = torch.zeros((lcap + 1, w, 2), dtype=window.obs_uv.dtype, device=dev)
+    obs_uv[lm_idx, w_idx] = window.obs_uv
+    obs_valid = torch.zeros((lcap + 1, w), dtype=torch.bool, device=dev)
+    # a tensor value: a Python scalar here would be a host-to-device copy
+    obs_valid[lm_idx, w_idx] = window.obs_valid
     return LandmarkMajorProblem(
         poses=window.poses, pose_valid=window.pose_valid, lm_pos=window.lm_pos,
-        lm_valid=window.lm_valid, obs_uv=obs_uv, obs_valid=obs_valid,
+        lm_valid=window.lm_valid, obs_uv=obs_uv[:lcap], obs_valid=obs_valid[:lcap],
         lm_prior=window.lm_prior, lm_prior_w=window.lm_prior_w,
     )
 
@@ -276,9 +281,10 @@ def _solve_from_system(sys: BASystem, poses, lm_pos, lam, cfg, group=None):
     if cfg.reduced_solve_f64:
         # the f64 island: Ceres' double-precision dense Schur solve, for the
         # tiny reduced system only
-        delta = torch.linalg.solve(s_mat.to(torch.float64), rhs_v.to(torch.float64)).to(dtype)
+        delta = torch.linalg.solve_ex(s_mat.to(torch.float64),
+                                      rhs_v.to(torch.float64))[0].to(dtype)
     else:
-        lu, piv = torch.linalg.lu_factor(s_mat)
+        lu, piv, _ = torch.linalg.lu_factor_ex(s_mat)
         delta = torch.linalg.lu_solve(lu, piv, rhs_v)
         for _ in range(int(cfg.reduced_solve_refine)):
             resid = rhs_v - s_mat @ delta
@@ -301,62 +307,81 @@ def _solve_from_system(sys: BASystem, poses, lm_pos, lam, cfg, group=None):
     return new_poses, lm_pos + delta_l, pred
 
 
+def lm_trip(max_lm_iters: int) -> int:
+    """The loop bodies ``lm_loop`` runs: the reference's ``while_loop`` runs
+    pairs of bodies while fewer than ``max_lm_iters`` have updated, so at
+    most ``2 * ceil(max_lm_iters / 2)``."""
+    return 2 * ((max_lm_iters + 1) // 2)
+
+
 def lm_loop(prob: LandmarkMajorProblem, cam, cfg, init_lam=None, group=None):
-    """The LM accept/reject loop.
+    """The LM accept/reject loop (``_lm_run`` without its iteration count).
 
     Returns ``(poses, lm_pos, initial_cost, final_cost, accepted, last_rel,
     final_lam)``; ``init_lam`` overrides ``cfg.init_damping``. With a
     process ``group``, ``prob`` holds this rank's landmark block and the
     reductions are summed over the group (module docstring); the returned
-    ``lm_pos`` is the local block."""
+    ``lm_pos`` is the local block.
+
+    The reference's masked carry, with no host read: a fixed trip of
+    ``lm_trip(cfg.max_lm_iters)`` bodies, each a no-op once ``done`` (``upd =
+    ~done`` freezes the carry), which is what the reference's ``while_loop``
+    over pairs of bodies computes, odd ``max_lm_iters`` included. The
+    λ-free system is rebuilt every body and kept only after an accepted
+    step: the carried one was built at the same iterate, so the result is
+    the reference's conditional rebuild."""
+    return _lm_run(prob, cam, cfg, init_lam, group)[:7]
+
+
+def _lm_run(prob: LandmarkMajorProblem, cam, cfg, init_lam=None, group=None):
+    """``lm_loop``'s results and, last, the bodies that updated (the
+    reference's ``it``)."""
     poses, lm_pos = prob.poses, prob.lm_pos
     dtype, dev = poses.dtype, poses.device
     hd = cfg.huber_delta_px
+    tol = cfg.lm_rel_tol
     cost0 = _lm_major_cost(poses, lm_pos, prob, cam, cfg.min_depth, hd, group)
     sys = _build_system(poses, lm_pos, prob, cam, cfg, group)
 
     if init_lam is None:
-        lam = torch.tensor(cfg.init_damping, dtype=dtype, device=dev)
+        lam = torch.full((), cfg.init_damping, dtype=dtype, device=dev)
     else:
         lam = torch.clamp(torch.as_tensor(init_lam, dtype=dtype, device=dev),
                           cfg.min_damping, cfg.max_damping)
-    nu = torch.tensor(2.0, dtype=dtype, device=dev)
+    nu = torch.full((), 2.0, dtype=dtype, device=dev)
     cost = cost0
-    accepted = 0
-    rel = torch.tensor(0.0, dtype=dtype, device=dev)
-    it = 0
-    done = False
-    tol = cfg.lm_rel_tol
+    accepted = torch.zeros((), dtype=torch.int32, device=dev)
+    rel = torch.zeros((), dtype=dtype, device=dev)
+    done = torch.zeros((), dtype=torch.bool, device=dev)
+    it = torch.zeros((), dtype=torch.int32, device=dev)
 
-    while it < cfg.max_lm_iters and not done:
-        # two iterations per trip, as the reference's unrolled loop runs them
-        for _ in range(2):
-            if done:
-                break
-            cand_p, cand_l, pred = _solve_from_system(sys, poses, lm_pos, lam, cfg, group)
-            cand_cost = _lm_major_cost(cand_p, cand_l, prob, cam, cfg.min_depth, hd, group)
-            ok = bool((cand_cost < cost) & torch.isfinite(cand_cost))
-            cost_prev = cost
-            rho = (cost_prev - cand_cost) / torch.clamp(pred, min=1e-20)
-            if ok:
-                poses, lm_pos, cost = cand_p, cand_l, cand_cost
-                sys = _build_system(poses, lm_pos, prob, cam, cfg, group)
-                shrink = torch.clamp(1.0 - (2.0 * rho - 1.0) ** 3, min=1.0 / 3.0)
-                new_lam = torch.clamp(lam * shrink, cfg.min_damping, cfg.max_damping)
-                nu = torch.full_like(nu, 2.0)
-            else:
-                new_lam = torch.clamp(lam * nu, cfg.min_damping, cfg.max_damping)
-                nu = nu * 2.0
-            rel = torch.abs(cost_prev - cost) / torch.clamp(cost_prev, min=1e-20)
-            flat_reject = (not ok) and bool(
-                torch.abs(cand_cost - cost_prev) < tol * torch.clamp(cost_prev, min=1e-20))
-            done = ((ok and bool(rel < tol)) or flat_reject
-                    or ((not ok) and bool(lam >= cfg.max_damping)))
-            lam = new_lam
-            accepted += int(ok)
-            it += 1
-    return (poses, lm_pos, cost0, cost,
-            torch.tensor(accepted, dtype=torch.int32, device=dev), rel, lam)
+    for _ in range(lm_trip(cfg.max_lm_iters)):
+        cand_p, cand_l, pred = _solve_from_system(sys, poses, lm_pos, lam, cfg, group)
+        cand_cost = _lm_major_cost(cand_p, cand_l, prob, cam, cfg.min_depth, hd, group)
+        upd = ~done
+        ok = (cand_cost < cost) & torch.isfinite(cand_cost) & upd
+        poses = torch.where(ok, cand_p, poses)
+        lm_pos = torch.where(ok, cand_l, lm_pos)
+        cost_new = torch.where(ok, cand_cost, cost)
+        rebuilt = _build_system(poses, lm_pos, prob, cam, cfg, group)
+        sys = BASystem(*(torch.where(ok, new, old) for new, old in zip(rebuilt, sys)))
+        rho = (cost - cand_cost) / torch.clamp(pred, min=1e-20)
+        shrink = torch.clamp(1.0 - (2.0 * rho - 1.0) ** 3, min=1.0 / 3.0)
+        new_lam = torch.where(
+            upd,
+            torch.clamp(torch.where(ok, lam * shrink, lam * nu), cfg.min_damping,
+                        cfg.max_damping),
+            lam)
+        nu = torch.where(upd, torch.where(ok, torch.full_like(nu, 2.0), nu * 2.0), nu)
+        rel = torch.where(upd, torch.abs(cost - cost_new) / torch.clamp(cost, min=1e-20), rel)
+        flat_reject = upd & ~ok & (
+            torch.abs(cand_cost - cost) < tol * torch.clamp(cost, min=1e-20))
+        done = done | (ok & (rel < tol)) | flat_reject | (upd & ~ok & (lam >= cfg.max_damping))
+        lam = new_lam
+        cost = cost_new
+        accepted = accepted + ok.to(torch.int32)
+        it = it + upd.to(torch.int32)
+    return poses, lm_pos, cost0, cost, accepted, rel, lam, it
 
 
 def _bundle_adjust_uncompacted(window: WindowState, cam, cfg, rel_tol):
@@ -372,11 +397,17 @@ def _bundle_adjust_uncompacted(window: WindowState, cam, cfg, rel_tol):
     return new_window, stats
 
 
+def compaction_applies(cfg: BackendConfig, landmark_capacity: int) -> bool:
+    """Whether ``bundle_adjust`` chooses between a compacted and a full solve."""
+    return 0 < cfg.ba_compact_landmarks < landmark_capacity
+
+
 def bundle_adjust(
     window: WindowState,
     cam: CameraInfo,
     cfg: BackendConfig,
     rel_tol: float = 1e-6,
+    compact=None,
 ) -> Tuple[WindowState, BASolveStats]:
     """Solve the sliding-window BA problem; writes optimized poses and
     landmarks back into the window.
@@ -385,10 +416,19 @@ def bundle_adjust(
     many landmarks are live, solve on exactly that many rows (live first,
     stable order) and scatter positions back. Observations are masked by
     ``lm_valid[obs_lm]`` before the remap, so no observation can alias a
-    dead landmark."""
+    dead landmark.
+
+    ``compact`` is the reference's choice between the two solves (its
+    ``lax.cond`` on the live count): ``None`` reads the live count from the
+    window (one host read); ``True`` or ``False`` takes that solve, which
+    then reads nothing back. The two sum in different float32 orders."""
     lcap = window.landmark_capacity
     l_small = cfg.ba_compact_landmarks
-    if 0 < l_small < lcap and int(window.lm_valid.sum()) <= l_small:
+    if not compaction_applies(cfg, lcap):
+        compact = False
+    elif compact is None:
+        compact = int(window.lm_valid.sum()) <= l_small
+    if compact:
         order = valid_first(window.lm_valid)[:l_small]
         inv = torch.zeros((lcap,), dtype=torch.int64, device=order.device)
         inv[order] = torch.arange(l_small, device=order.device)

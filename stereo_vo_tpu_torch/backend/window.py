@@ -93,10 +93,25 @@ def add_keyframe(
     lowest free landmark ids; the keyframe's observation count is capped at
     ``cfg.max_features`` by truncating new features. Returns
     ``(new_state, new_ids [F] int32, new_ids_valid [F])``.
+
+    Fixed shapes and no host read, as the reference's ``mode="drop"``
+    scatters: masked rows go to a dump row past the landmark table, never
+    scaled by zero (``tracked_prior_pos`` may hold inf), and the eviction is
+    computed and selected on the device.
     """
     f_cap = state.feature_capacity
     l_cap = state.landmark_capacity
+    w_cap = state.window_size
     device = pose.device
+
+    def scatter(table, idx, values, add=False):
+        """``table`` with rows ``idx`` set (or added to) from ``values``;
+        index ``l_cap`` is a dump row past the table, cut off afterwards."""
+        ext = torch.cat([table, torch.zeros_like(table[:1])])
+        if add:
+            return ext.index_add(0, idx, values)[:l_cap]
+        ext[idx] = values
+        return ext[:l_cap]
 
     # cap new features: max_new = max_features - num_tracked
     num_tracked = torch.sum(tracked_valid.to(torch.int32))
@@ -110,44 +125,38 @@ def add_keyframe(
     free_order = valid_first(~state.lm_valid)
     new_ids = free_order[torch.clamp(new_rank, 0, l_cap - 1).to(torch.int64)].to(torch.int32)
     new_ids = torch.where(new_valid, new_ids, 0)
-    sel = new_ids[new_valid].to(torch.int64)
+    scat = torch.where(new_valid, new_ids.to(torch.int64), l_cap)
 
     # write new landmarks (refcount exactly 1)
-    lm_pos = state.lm_pos.clone()
-    lm_pos[sel] = new_p3[new_valid]
-    lm_refcount = state.lm_refcount.clone()
-    lm_refcount[sel] += 1
-    lm_valid = state.lm_valid.clone()
-    lm_valid[sel] = True
+    lm_pos = scatter(state.lm_pos, scat, new_p3)
+    lm_refcount = scatter(state.lm_refcount, scat, torch.ones_like(new_ids), add=True)
+    lm_valid = scatter(state.lm_valid, scat, torch.ones_like(new_valid))
     if new_prior_w is None:
         new_prior_w = torch.zeros(new_valid.shape, dtype=state.lm_prior_w.dtype, device=device)
     lm_prior = state.lm_prior
     lm_prior_w = state.lm_prior_w
 
-    # stereo-prior refresh for tracked landmarks: information-filter fusion
+    # stereo-prior refresh for tracked landmarks: information-filter fusion;
+    # a tracked landmark's id is unique among the tracked slots, so each
+    # live row takes at most one add
     if tracked_prior_w is not None:
         tw = torch.where(tracked_valid, tracked_prior_w, 0.0)
-        upd = tw > 0
-        t_ids = tracked_lm[upd].to(torch.int64)
-        num = lm_prior * lm_prior_w[:, None]
-        num = num.index_add(0, t_ids, tw[upd][:, None] * tracked_prior_pos[upd])
-        lm_prior_w = lm_prior_w.index_add(0, t_ids, tw[upd])
+        t_scat = torch.where(tw > 0, tracked_lm.to(torch.int64), l_cap)
+        num = scatter(lm_prior * lm_prior_w[:, None], t_scat,
+                      tw[:, None] * tracked_prior_pos, add=True)
+        lm_prior_w = scatter(lm_prior_w, t_scat, tw, add=True)
         lm_prior = torch.where(
             (lm_prior_w > 0)[:, None],
             num / torch.clamp(lm_prior_w, min=1e-20)[:, None],
             lm_prior,
         )
 
-    lm_prior = lm_prior.clone()
-    lm_prior[sel] = new_p3[new_valid]
-    lm_prior_w = lm_prior_w.clone()
-    lm_prior_w[sel] = new_prior_w[new_valid]
+    lm_prior = scatter(lm_prior, scat, new_p3)
+    lm_prior_w = scatter(lm_prior_w, scat, new_prior_w)
 
     # tracked features bump their landmarks' refcounts
-    lm_refcount = lm_refcount.index_add(
-        0, tracked_lm[tracked_valid].to(torch.int64),
-        torch.ones_like(tracked_lm[tracked_valid]),
-    )
+    trk_scat = torch.where(tracked_valid, tracked_lm.to(torch.int64), l_cap)
+    lm_refcount = scatter(lm_refcount, trk_scat, torch.ones_like(tracked_lm), add=True)
 
     # this keyframe's packed observation row: tracked first, then new
     cat_uv = torch.cat([tracked_uv, new_uv], dim=0)
@@ -157,31 +166,24 @@ def add_keyframe(
     row_valid, row_uv, row_lm = cat_valid[order], cat_uv[order], cat_lm[order]
     row_valid = row_valid & (torch.cumsum(row_valid.to(torch.int32), dim=0) <= cfg.max_features)
 
-    # insert chronologically (oldest at index 0), evicting the oldest if full
-    poses = state.poses
-    obs_uv, obs_lm, obs_valid = state.obs_uv, state.obs_lm, state.obs_valid
-    pose_valid = state.pose_valid
-    if int(state.num_kf) >= state.window_size:
-        ev = obs_valid[0]
-        lm_refcount = lm_refcount.index_add(
-            0, obs_lm[0][ev].to(torch.int64), -torch.ones_like(obs_lm[0][ev]))
-        lm_valid = lm_valid & (lm_refcount > 0)
-        lm_refcount = torch.clamp(lm_refcount, min=0)
-        poses = torch.roll(poses, -1, dims=0)
-        obs_uv = torch.roll(obs_uv, -1, dims=0)
-        obs_lm = torch.roll(obs_lm, -1, dims=0)
-        obs_valid = torch.roll(obs_valid, -1, dims=0)
-        idx = state.window_size - 1
-    else:
-        poses, obs_uv, obs_lm, obs_valid = (
-            poses.clone(), obs_uv.clone(), obs_lm.clone(), obs_valid.clone())
-        pose_valid = pose_valid.clone()
-        idx = int(state.num_kf)
-        pose_valid[idx] = True
-    poses[idx] = pose
-    obs_uv[idx] = row_uv
-    obs_lm[idx] = row_lm
-    obs_valid[idx] = row_valid
+    # insert chronologically (oldest at index 0); a full window first evicts
+    # the oldest keyframe. Both cases are computed and the device selects
+    full = state.num_kf >= w_cap
+    ev_scat = torch.where(state.obs_valid[0], state.obs_lm[0].to(torch.int64), l_cap)
+    rc_ev = scatter(lm_refcount, ev_scat, -torch.ones_like(state.obs_lm[0]), add=True)
+    lm_valid = torch.where(full, lm_valid & (rc_ev > 0), lm_valid)
+    lm_refcount = torch.where(full, torch.clamp(rc_ev, min=0), lm_refcount)
+
+    def shifted(t):
+        return torch.where(full, torch.roll(t, -1, dims=0), t)
+
+    idx = torch.where(full, w_cap - 1, torch.clamp(state.num_kf, max=w_cap - 1))
+    row = torch.arange(w_cap, device=device) == idx
+    poses = torch.where(row[:, None], pose[None, :], shifted(state.poses))
+    obs_uv = torch.where(row[:, None, None], row_uv[None], shifted(state.obs_uv))
+    obs_lm = torch.where(row[:, None], row_lm[None], shifted(state.obs_lm))
+    obs_valid = torch.where(row[:, None], row_valid[None], shifted(state.obs_valid))
+    pose_valid = state.pose_valid | row
 
     out = state._replace(
         poses=poses, pose_valid=pose_valid, obs_uv=obs_uv, obs_lm=obs_lm,
@@ -195,7 +197,7 @@ def add_keyframe(
 def newest_pose(state: WindowState) -> torch.Tensor:
     """The most recent keyframe's T_cw (the pose the reference publishes)."""
     idx = torch.clamp(state.num_kf - 1, 0, state.window_size - 1).to(torch.int64)
-    return state.poses[idx]
+    return torch.index_select(state.poses, 0, idx.reshape(1))[0]
 
 
 def get_world_points(state: WindowState, ids: torch.Tensor) -> torch.Tensor:

@@ -11,6 +11,8 @@ import dataclasses
 
 import torch
 
+from stereo_vo_tpu_torch.core.consts import const
+
 
 @dataclasses.dataclass(frozen=True)
 class CameraInfo:
@@ -54,7 +56,8 @@ class CameraInfo:
         )
 
     def principal_point(self, like: torch.Tensor) -> torch.Tensor:
-        return torch.tensor([self.cx, self.cy], dtype=like.dtype, device=like.device)
+        """``[cx, cy]`` in ``like``'s dtype and device, made once (``core/consts.py``)."""
+        return const([self.cx, self.cy], like.dtype, like.device)
 
     def project(self, p_cam: torch.Tensor) -> torch.Tensor:
         """Project ``[..., 3]`` camera-frame points to ``[..., 2]`` pixels."""

@@ -18,11 +18,12 @@ from __future__ import annotations
 
 import torch
 
+from stereo_vo_tpu_torch.core.consts import const
 from stereo_vo_tpu_torch.core.f32 import sqrt_f32
 
 
 def _const(values, like: torch.Tensor) -> torch.Tensor:
-    return torch.tensor(values, dtype=like.dtype, device=like.device)
+    return const(values, like.dtype, like.device)
 
 
 # ---------------------------------------------------------------------------

@@ -5,9 +5,19 @@ enough detections; ``VOEngine.step`` runs one frame: the every-frame
 detection-count bail, fused forward/backward LK tracking, the
 parallax/lost keyframe gate, PnP on accepted frames, and on keyframes
 detection, dedup, sparse StereoBM, triangulation, the window update and the
-Schur-LM solve. Each of the reference's ``lax.cond`` branches is a Python
-``if`` on a 0-d tensor here, so every branch costs one host sync and only the
-taken branch runs.
+Schur-LM solve. Each of the reference's frame-level ``lax.cond`` branches
+is a Python ``if`` on a 0-d tensor here, read once, so only the taken branch
+runs.
+
+The keyframe branch, from the accept decision to the new tracker state,
+makes the reference's decisions on the device as the reference does, and
+reads back only its conditions: PnP's ``ok`` and the live-landmark count
+that chooses the compacted or the full bundle adjustment. Between them it
+runs as three stretches, PnP, the keyframe work up to the solve, and the
+solve with the tracker's slot re-init; with ``graphs=True`` (the default on
+``cuda``) each is captured in a CUDA graph at its first use and replayed
+after (``engine/graphs.py``). ``graphs=False`` runs the same code eagerly.
+The branch runs inside the profiler range ``BRANCH_RANGE``.
 
 The PnP hypotheses are the reference's own ``jax.random`` draw, recomputed
 bit for bit from the frame index (``frontend/prng.py``);
@@ -20,12 +30,14 @@ chunk is a loop of ``step`` calls (the reference's ``lax.scan``).
 
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
+from torch.profiler import record_function
 
-from stereo_vo_tpu_torch.backend.schur import bundle_adjust
+from stereo_vo_tpu_torch.backend.schur import bundle_adjust, compaction_applies
 from stereo_vo_tpu_torch.backend.window import (
     WindowState,
     add_keyframe,
@@ -36,7 +48,9 @@ from stereo_vo_tpu_torch.backend.window import (
 )
 from stereo_vo_tpu_torch.core import geometry as geo
 from stereo_vo_tpu_torch.core.config import PipelineConfig
+from stereo_vo_tpu_torch.core.consts import const
 from stereo_vo_tpu_torch.core.f32 import sqrt_f32
+from stereo_vo_tpu_torch.engine.graphs import Stretch
 from stereo_vo_tpu_torch.frontend.detect import dedup_new_features, detect_features
 from stereo_vo_tpu_torch.frontend.pnp import PnPResult, pnp_ransac
 from stereo_vo_tpu_torch.frontend.track import NO_FLOW, TrackerState, track_step, tracker_init
@@ -125,20 +139,44 @@ def _stereo_weight(fb: float, z: torch.Tensor, sigma_d: float) -> torch.Tensor:
     return (torch.full_like(z, fb) / (torch.clamp(z, min=1.0) ** 2 * sigma_d)) ** 2
 
 
+# the torch.profiler range around a step's keyframe branch
+BRANCH_RANGE = "VOEngine.keyframe_branch"
+
+
 class VOEngine:
     """Bootstrap/step functions closed over one config, image shape and device
     (``cuda`` unless the caller passes ``device="cpu"``).
+
+    ``graphs``: replay the keyframe branch from CUDA graphs (module
+    docstring); ``None`` means ``True`` on ``cuda`` and ``False`` elsewhere,
+    and ``True`` off ``cuda`` raises. ``stretches`` holds the captured
+    stretches by name.
 
     TF32 is switched off for both matmuls and cuDNN: the port matches the
     reference in float32."""
 
     def __init__(self, config: PipelineConfig, image_shape: Tuple[int, int],
-                 device="cuda"):
+                 device="cuda", graphs: Optional[bool] = None):
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
         self.config = config
         self.image_shape = tuple(image_shape)
         self.device = torch.device(device)
+        if graphs is None:
+            graphs = self.device.type == "cuda"
+        if graphs and self.device.type != "cuda":
+            raise ValueError(f"graphs=True needs a CUDA device, not {self.device}")
+        self.graphs = bool(graphs)
+        self.stretches = {}
+
+    def _run(self, name: str, fn, *args):
+        """``fn(*args)``, through the stretch ``name`` when graphs are on."""
+        if not self.graphs:
+            return fn(*args)
+        stretch = self.stretches.get(name)
+        if stretch is None:
+            stretch = self.stretches[name] = Stretch(name, fn)
+        return stretch(*args)
 
     def _image(self, img) -> torch.Tensor:
         """A host or device image as float32 on the engine's device (uint8
@@ -148,7 +186,9 @@ class VOEngine:
         return img.to(self.device).to(torch.float32)
 
     def _scalar(self, value, dtype) -> torch.Tensor:
-        return torch.as_tensor(value, dtype=dtype, device=self.device)
+        """A constant 0-d tensor on the engine's device, made once; callers
+        never write into it."""
+        return const(value, dtype, self.device)
 
     # ------------------------------------------------------------------
     def init_state(self) -> VOState:
@@ -256,17 +296,26 @@ class VOEngine:
         return new_state, out
 
     # ------------------------------------------------------------------
-    def _keyframe_work(self, left_f, right_f, pose, inliers, tracked: TrackerState,
+    def _pnp(self, lm_pos, feat_ids, feat_xy, feat_valid, prev_pose, frame_idx,
+             hyp_idx=None) -> PnPResult:
+        """The PnP stretch: PnP-RANSAC on the tracked features against the
+        window's landmarks, seeded by the device frame index."""
+        cfg = self.config
+        world_pts = lm_pos[feat_ids.to(torch.int64)]
+        return pnp_ransac(world_pts, feat_xy, feat_valid, cfg.camera, prev_pose, frame_idx,
+                          cfg.frontend, hyp_idx=hyp_idx)
+
+    def _keyframe_prep(self, left_f, right_f, pose, inliers, feat_xy, feat_ids, feat_valid,
                        window: WindowState, resp):
-        """Keyframe branch: detect, dedup, sparse BM, triangulate, window
-        update, BA, tracker re-init slots. Returns ``(window, opt_pose, slots,
-        (ba_c0, ba_c1, ba_iters, n_new_landmarks))``."""
+        """The keyframe work up to the solve: detect, dedup, sparse BM,
+        triangulate, window update. Returns ``(window, det_xy, inlier_valid,
+        new_ids, new_ids_valid, live)``, ``live`` the window's live-landmark
+        count that chooses the solve."""
         cfg = self.config
         f_cap = cfg.backend.feature_capacity
-        feat_xy, feat_ids = tracked.feat_xy, tracked.feat_ids
         det_xy, det_valid = detect_features(left_f, cfg.frontend, resp=resp)
         # keyframe observations are the PnP inliers only
-        inlier_valid = tracked.feat_valid & inliers
+        inlier_valid = feat_valid & inliers
         new_valid = dedup_new_features(
             det_xy, det_valid, feat_xy, inlier_valid, cfg.frontend.min_distance)
         # sparse BM at the new detections and at the tracked inliers
@@ -311,7 +360,16 @@ class VOEngine:
             _pad_to(tri_valid, f_cap), _pad_to(w_new, f_cap),
             tracked_prior_pos=p3_trk, tracked_prior_w=w_trk,
         )
-        window, ba_stats = bundle_adjust(window, cfg.camera, cfg.backend)
+        live = torch.sum(window.lm_valid.to(torch.int32))
+        return window, det_xy, inlier_valid, new_ids, new_ids_valid, live
+
+    def _keyframe_solve(self, compact: bool, window: WindowState, det_xy, inlier_valid,
+                        new_ids, new_ids_valid, feat_xy, feat_ids, flow_xy, flow_valid):
+        """The solve and the tracker's slot re-init. Returns ``(window,
+        opt_pose, slots, (ba_c0, ba_c1, ba_iters, n_new_landmarks))``."""
+        cfg = self.config
+        f_cap = cfg.backend.feature_capacity
+        window, ba_stats = bundle_adjust(window, cfg.camera, cfg.backend, compact=compact)
         opt_pose = newest_pose(window)
 
         # tracker re-init slots: inlier tracked + new features, valid first;
@@ -319,15 +377,32 @@ class VOEngine:
         cat_xy = torch.cat([feat_xy, _pad_to(det_xy, f_cap)], dim=0)
         cat_ids = torch.cat([feat_ids, new_ids], dim=0)
         cat_valid = torch.cat([inlier_valid, new_ids_valid], dim=0)
-        cat_flow = torch.cat([tracked.flow_xy, torch.zeros_like(tracked.flow_xy)], dim=0)
+        cat_flow = torch.cat([flow_xy, torch.zeros_like(flow_xy)], dim=0)
         cat_flow_valid = torch.cat(
-            [tracked.flow_valid & inlier_valid, torch.zeros_like(tracked.flow_valid)], dim=0)
+            [flow_valid & inlier_valid, torch.zeros_like(flow_valid)], dim=0)
         order = valid_first(cat_valid)[:f_cap]
         slots = (cat_xy[order], cat_ids[order], cat_valid[order],
                  cat_flow[order], cat_flow_valid[order])
         n_newlm = torch.sum(new_ids_valid.to(torch.int32))
         return window, opt_pose, slots, (
             ba_stats.initial_cost, ba_stats.final_cost, ba_stats.iterations, n_newlm)
+
+    def _keyframe_work(self, left_f, right_f, pose, inliers, tracked: TrackerState,
+                       window: WindowState, resp):
+        """Keyframe branch after PnP: the keyframe work, the compaction
+        choice (one host read of the live-landmark count, when compaction
+        applies), then the chosen solve. Returns ``(window, opt_pose, slots,
+        (ba_c0, ba_c1, ba_iters, n_new_landmarks))``."""
+        bc = self.config.backend
+        window, det_xy, inlier_valid, new_ids, new_ids_valid, live = self._run(
+            "keyframe_prep", self._keyframe_prep, left_f, right_f, pose, inliers,
+            tracked.feat_xy, tracked.feat_ids, tracked.feat_valid, window, resp)
+        compact = (compaction_applies(bc, window.landmark_capacity)
+                   and int(live) <= bc.ba_compact_landmarks)
+        return self._run("solve_compact" if compact else "solve_full",
+                         functools.partial(self._keyframe_solve, compact),
+                         window, det_xy, inlier_valid, new_ids, new_ids_valid,
+                         tracked.feat_xy, tracked.feat_ids, tracked.flow_xy, tracked.flow_valid)
 
     # ------------------------------------------------------------------
     def _preprocess(self, lefts_f: torch.Tensor):
@@ -372,21 +447,27 @@ class VOEngine:
         pyr, n_peaks, resp = precomp if precomp is not None else self._preprocess(left_f)
         pyr = tuple(pyr)
         n_det = torch.clamp(n_peaks, max=cfg.frontend.max_detect)
-        has_det = bool(n_peaks >= cfg.frontend.min_detected)
 
         # track unconditionally; a skipped frame discards the update below
         tracked, stats = track_step(state.tracker, pyr, cfg.frontend)
 
-        accept = has_det and bool(
-            (stats.av_parallax > cfg.frontend.parallax_thresh)
-            | (stats.percent_lost >= cfg.frontend.lost_thresh)
-        )
+        # the frame's two decisions, read back together: enough quality
+        # peaks, and the parallax / lost gate
+        gate = ((stats.av_parallax > cfg.frontend.parallax_thresh)
+                | (stats.percent_lost >= cfg.frontend.lost_thresh))
+        has_det, gate_ok = torch.stack([n_peaks >= cfg.frontend.min_detected, gate]).tolist()
+        accept = has_det and gate_ok
+        was_kf = False
         if accept:
-            world_pts = get_world_points(state.window, tracked.feat_ids)
-            res = pnp_ransac(
-                world_pts, tracked.feat_xy, tracked.feat_valid, cfg.camera,
-                state.pnp_pose, int(state.frame_idx), cfg.frontend, hyp_idx=pnp_indices,
-            )
+            with record_function(BRANCH_RANGE):
+                res = self._run(
+                    "pnp" if pnp_indices is None else "pnp_given", self._pnp,
+                    state.window.lm_pos, tracked.feat_ids, tracked.feat_xy,
+                    tracked.feat_valid, state.pnp_pose, state.frame_idx, pnp_indices)
+                was_kf = bool(res.ok)
+                if was_kf:
+                    kf_out = self._keyframe_work(
+                        left_f, right_f, res.pose, res.inliers, tracked, state.window, resp)
         else:
             res = PnPResult(
                 pose=state.pnp_pose,
@@ -394,14 +475,12 @@ class VOEngine:
                 num_inliers=self._scalar(0, torch.int32),
                 ok=self._scalar(False, torch.bool),
             )
-        was_kf = accept and bool(res.ok)
 
         tr = state.tracker
         zf = self._scalar(0.0, torch.float32)
         zero = self._scalar(0, torch.int32)
         if was_kf:
-            window, opt_pose, slots, (ba_c0, ba_c1, ba_iters, n_newlm) = self._keyframe_work(
-                left_f, right_f, res.pose, res.inliers, tracked, state.window, resp)
+            window, opt_pose, slots, (ba_c0, ba_c1, ba_iters, n_newlm) = kf_out
             slot_xy, slot_ids, slot_valid, slot_flow, slot_flow_valid = slots
             pnp_pose, cur_pose = res.pose, opt_pose
             new_tracker = TrackerState(

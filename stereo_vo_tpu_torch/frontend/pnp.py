@@ -245,9 +245,9 @@ def pnp_ransac_core(
     errs = _reproj_errors(hyp_poses, p3, uv, cam)                  # [H, F]
     inl = (errs < cfg.pnp_reproj_thresh) & valid[None, :]
     counts = torch.where(hyp_ok, torch.sum(inl, dim=1), -1)
-    best = torch.argmax(counts)                                    # first max
-    pose = hyp_poses[best]
-    inl_set = inl[best]
+    best = torch.argmax(counts).reshape(1)                         # first max
+    pose = torch.index_select(hyp_poses, 0, best)[0]
+    inl_set = torch.index_select(inl, 0, best)[0]
 
     # LO-RANSAC: refine on the inlier set, recount, keep if no inlier is lost
     for _ in range(cfg.pnp_lo_rounds):
@@ -262,7 +262,7 @@ def pnp_ransac_core(
     return PnPResult(pose=pose, inliers=inl_set, num_inliers=out_n, ok=ok)
 
 
-def sample_hypotheses(valid: torch.Tensor, n_draws: int, k: int, seed: int) -> torch.Tensor:
+def sample_hypotheses(valid: torch.Tensor, n_draws: int, k: int, seed) -> torch.Tensor:
     """``[n_draws, k]`` int64 minimal-sample indices on ``valid``'s device:
     exactly the reference's draw, ``jax.random.choice(key_i, F, (k,),
     replace=False, p=valid / n_valid)`` with ``key_i`` the rows of
@@ -273,8 +273,9 @@ def sample_hypotheses(valid: torch.Tensor, n_draws: int, k: int, seed: int) -> t
     score ``-inf``, so with fewer than ``k`` valid slots the lowest-index
     invalid ones fill the row, and with none it is ``0..k-1``.
 
-    Everything runs on ``valid``'s device from the Python ``seed``: no value
-    is read back to the host and nothing is copied to the device. The first
+    Everything runs on ``valid``'s device from ``seed``, a Python int or a
+    0-d integer tensor on that device: no value is read back to the host and
+    nothing is copied to the device. The first
     call on a device builds the tables of ``prng.gumbel_table`` and
     ``prng.log_inverse_counts`` there."""
     dev = valid.device
@@ -292,13 +293,15 @@ def pnp_ransac(
     valid: torch.Tensor,
     cam: CameraInfo,
     prev_pose: torch.Tensor,
-    seed: int,
+    seed,
     cfg: FrontendConfig,
     hyp_idx: Optional[torch.Tensor] = None,
 ) -> PnPResult:
     """Estimate T_cw from fixed-capacity correspondences ``p3 [F, 3]``,
-    ``uv [F, 2]``, ``valid [F]``; ``seed`` (the frame index) seeds the
-    sampling unless ``hyp_idx`` is given."""
+    ``uv [F, 2]``, ``valid [F]``; ``seed`` (the frame index, a Python int or
+    a 0-d integer tensor on the device, as the reference passes
+    ``state.frame_idx``) seeds the sampling unless ``hyp_idx`` is given. No
+    value is read back to the host."""
     if hyp_idx is None:
         hyp_idx = sample_hypotheses(valid, cfg.pnp_iterations - 1, cfg.pnp_sample_size, seed)
     return pnp_ransac_core(p3, uv, valid, cam, prev_pose, hyp_idx, cfg)

@@ -64,10 +64,16 @@ def threefry2x32(k1: torch.Tensor, k2: torch.Tensor, x1: torch.Tensor,
     return x1 & MASK32, x2
 
 
-def prng_key(seed: int, device=None) -> torch.Tensor:
+def prng_key(seed, device=None) -> torch.Tensor:
     """``jax.random.PRNGKey(seed)`` for a uint32 seed: ``[2]`` int64 words
-    ``(0, seed)``, made on ``device`` without a host-to-device copy."""
-    return torch.arange(2, dtype=torch.int64, device=device) * (int(seed) & MASK32)
+    ``(0, seed)``, made on ``device`` without a host-to-device copy. ``seed``
+    is a Python int or a 0-d integer tensor (then on ``device``, and read
+    as uint32, as the reference's ``frame_idx.astype(uint32)``)."""
+    if isinstance(seed, torch.Tensor):
+        word = seed.to(torch.int64) & MASK32
+    else:
+        word = int(seed) & MASK32
+    return torch.arange(2, dtype=torch.int64, device=device) * word
 
 
 def split(key: torch.Tensor, n: int) -> torch.Tensor:

@@ -11,11 +11,13 @@ CPU, where there are no kernels, the self CPU time of each operator.
         print(ms, name)
 
 ``profile_replay`` profiles a window of streamed steps on the card: kernel
-launches, synchronizations and device time per frame, the device launches of
-the port's hand-written kernels, step and ``track_step`` latency.
+launches, CUDA graph launches, synchronizations and device time per frame,
+the device launches of the port's hand-written kernels, the runtime calls
+inside each keyframe branch, step and ``track_step`` latency.
 ``profile_keyframes`` does the same for keyframe steps (the 20-frame world,
-where every frame is a keyframe), and ``keyframe_bm_input`` builds the
-748-slot sparse-BM input of a keyframe step.
+where every frame is a keyframe), with the wrappers' own launch counts
+beside the trace's, and ``keyframe_bm_input`` builds the 748-slot sparse-BM
+input of a keyframe step.
 """
 
 from __future__ import annotations
@@ -78,11 +80,14 @@ def device_trace(out_dir: Optional[str] = None):
 def summarize_trace(prof, top: int = 20) -> List[Tuple[float, str]]:
     """``[(total_ms, kernel name), ...]`` sorted descending: device kernels
     by self device time when the profile saw any, else CPU operators by self
-    CPU time."""
+    CPU time. A ``record_function`` range also appears on the device's
+    timeline, spanning the kernels inside it; it is no kernel and is left
+    out."""
     from torch.autograd import DeviceType
 
     events = prof.key_averages()
-    kernels = [e for e in events if e.device_type == DeviceType.CUDA]
+    kernels = [e for e in events if e.device_type == DeviceType.CUDA
+               and not getattr(e, "is_user_annotation", False) and e.key != BRANCH_RANGE]
     if kernels:
         times = ((e.key, e.self_device_time_total) for e in kernels)
     else:
@@ -93,17 +98,49 @@ def summarize_trace(prof, top: int = 20) -> List[Tuple[float, str]]:
     return [(round(us / 1000, 3), name) for name, us in by_name.most_common(top) if us > 0]
 
 
+_KERNEL_LAUNCH_CALLS = ("cudaLaunchKernel", "cuLaunchKernel", "cudaLaunchKernelExC",
+                        "cuLaunchKernelEx")
+_GRAPH_LAUNCH_CALLS = ("cudaGraphLaunch", "cuGraphLaunch")
+
+
 def runtime_calls(prof) -> Dict[str, int]:
     """Host-side CUDA runtime calls in a profile: ``launches`` (kernel
-    launches) and ``syncs`` (calls that wait for the device)."""
-    calls = {"launches": 0, "syncs": 0}
+    launches), ``graph_launches`` (CUDA graph replays) and ``syncs`` (calls
+    that wait for the device)."""
+    calls = {"launches": 0, "graph_launches": 0, "syncs": 0}
     for e in prof.key_averages():
-        if e.key in ("cudaLaunchKernel", "cuLaunchKernel", "cudaLaunchKernelExC",
-                     "cuLaunchKernelEx"):
+        if e.key in _KERNEL_LAUNCH_CALLS:
             calls["launches"] += e.count
+        elif e.key in _GRAPH_LAUNCH_CALLS:
+            calls["graph_launches"] += e.count
         elif "Synchronize" in e.key:
             calls["syncs"] += e.count
     return calls
+
+
+def range_calls(prof, name: str) -> List[Dict[str, int]]:
+    """For each ``record_function(name)`` range in a profile, in order, the
+    runtime calls inside it: ``syncs``, ``launches`` and ``graph_launches``,
+    as ``runtime_calls`` counts them. Only host-side events count: the
+    profiler also draws each range on the device's timeline."""
+    from torch.autograd import DeviceType
+
+    events = [e for e in prof.events() if e.device_type == DeviceType.CPU]
+    ranges = sorted((e.time_range.start, e.time_range.end) for e in events if e.name == name)
+    out = []
+    for start, end in ranges:
+        calls = {"syncs": 0, "launches": 0, "graph_launches": 0}
+        for e in events:
+            if not (start <= e.time_range.start and e.time_range.end <= end):
+                continue
+            if "Synchronize" in e.name:
+                calls["syncs"] += 1
+            elif e.name in _KERNEL_LAUNCH_CALLS:
+                calls["launches"] += 1
+            elif e.name in _GRAPH_LAUNCH_CALLS:
+                calls["graph_launches"] += 1
+        out.append(calls)
+    return out
 
 
 # PERF.md section 5 profiles the steps of frames PROFILED_FRAMES[0] ..
@@ -119,25 +156,54 @@ CRUISE_FRAMES = (49, 81)
 KEYFRAME_PROFILED = (8, 12)
 KEYFRAME_TIMED_FROM = 2
 
-# device function names of the port's hand-written kernels (csrc/*.cu)
-PORT_KERNELS = ("lk_level_kernel", "stereo_bm_at_kernel", "extract_regions_kernel")
+# device function names of the port's hand-written kernels (csrc/*.cu), and
+# the wrapper that counts each one's launches: (module, function)
+PORT_KERNELS = ("lk_level_kernel", "stereo_bm_at_kernel", "extract_regions_kernel",
+                "greedy_nms_kernel")
+PORT_WRAPPERS = {"lk_level_kernel": ("ops.lk", "lk_level_pass"),
+                 "stereo_bm_at_kernel": ("ops.stereo_bm", "stereo_bm_at"),
+                 "extract_regions_kernel": ("ops.regions", "extract_regions"),
+                 "greedy_nms_kernel": ("ops.shi_tomasi", "greedy_nms")}
+# the profiler range around the keyframe branch (engine/step.py BRANCH_RANGE)
+BRANCH_RANGE = "VOEngine.keyframe_branch"
 
 
-def _trace_counts(prof, n) -> dict:
-    """Launches, syncs and device ms per step over ``n`` profiled steps, and
-    the device launches of each of ``PORT_KERNELS`` in the trace."""
+def wrapper_launches() -> Dict[str, int]:
+    """The launch count of each of ``PORT_KERNELS``' wrappers, by kernel
+    name, in the ``stereo_vo_tpu_torch`` on ``sys.path`` (0 where that
+    package has no such wrapper)."""
+    import importlib
+
+    out = {}
+    for kernel, (module, fn) in PORT_WRAPPERS.items():
+        wrapper = getattr(importlib.import_module("stereo_vo_tpu_torch." + module), fn, None)
+        out[kernel] = getattr(wrapper, "launches", 0)
+    return out
+
+
+def _trace_counts(prof, n, counted=None) -> dict:
+    """Launches, CUDA graph launches, syncs and device ms per step over ``n``
+    profiled steps, the device launches of each of ``PORT_KERNELS`` in the
+    trace and, given ``counted`` (the wrappers' launch counts over the same
+    steps), those beside them; and the runtime calls inside each keyframe
+    branch (``BRANCH_RANGE``)."""
     from torch.autograd import DeviceType
 
     calls = runtime_calls(prof)
     device_ms = sum(ms for ms, _ in summarize_trace(prof, top=100000))
     kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
-    return {
+    out = {
         "launches_per_frame": calls["launches"] / n,
+        "graph_launches_per_frame": calls["graph_launches"] / n,
         "syncs_per_frame": calls["syncs"] / n,
         "device_ms_per_frame": device_ms / n,
         "kernel_launches": {name: sum(e.count for e in kernels if name in e.key)
                             for name in PORT_KERNELS},
+        "keyframe_branches": range_calls(prof, BRANCH_RANGE),
     }
+    if counted is not None:
+        out["wrapper_launches"] = counted
+    return out
 
 
 def profile_replay(cfg, frames, device) -> dict:
@@ -145,9 +211,10 @@ def profile_replay(cfg, frames, device) -> dict:
     through a fresh ``VOEngine`` on ``device`` (a CUDA device) and profile
     the steps of ``PROFILED_FRAMES`` with ``torch.profiler``.
 
-    Returns per-frame ``launches``, ``syncs`` and ``device_ms`` over the
-    profiled frames, the device launches there of each of ``PORT_KERNELS``
-    (read from the trace, not from the wrappers' counters), and, over the
+    Returns per-frame ``launches``, ``graph_launches``, ``syncs`` and
+    ``device_ms`` over the profiled frames, the device launches there of each
+    of ``PORT_KERNELS`` (read from the trace, not from the wrappers'
+    counters), the runtime calls inside each keyframe branch, and, over the
     unprofiled steps of ``CRUISE_FRAMES``, the step wall p50 and the p50 of
     one extra synchronized ``track_step`` per frame (its result discarded),
     both in ms."""
@@ -202,8 +269,10 @@ def profile_keyframes(cfg, frames, device) -> dict:
 
     Returns the step wall p50 in ms over the unprofiled steps from
     ``KEYFRAME_TIMED_FROM`` on, then per profiled step ``launches``,
-    ``syncs`` and ``device_ms``, the device launches there of each of
-    ``PORT_KERNELS``, and how many of the profiled steps were keyframes."""
+    ``graph_launches``, ``syncs`` and ``device_ms``, the device launches
+    there of each of ``PORT_KERNELS`` from the trace and from the wrappers'
+    counts (``wrapper_launches``), the runtime calls inside each keyframe
+    branch, and how many of the profiled steps were keyframes."""
     import torch
 
     from stereo_vo_tpu_torch.engine.step import VOEngine, parse_summary
@@ -225,17 +294,20 @@ def profile_keyframes(cfg, frames, device) -> dict:
 
     for i in range(1, first):
         state, _ = advance(state, frames[i], i >= KEYFRAME_TIMED_FROM)
+    before = wrapper_launches()
     with device_trace() as prof:
         for i in range(first, end):
             state, kf = advance(state, frames[i], False)
             keyframes += int(kf)
+    after = wrapper_launches()
     for i in range(end, len(frames)):
         state, _ = advance(state, frames[i], True)
+    counted = {k: after[k] - before[k] for k in PORT_KERNELS}
     return {
         "frames": [first, end],
         "step_ms_p50": statistics.median(step_ms),
         "keyframes_profiled": keyframes,
-        **_trace_counts(prof, end - first),
+        **_trace_counts(prof, end - first, counted),
     }
 
 

@@ -87,7 +87,8 @@ def test_f64_island_matches_reference_lm_loop(rng):
 
 def test_bundle_adjust_with_f64_island(rng, monkeypatch):
     """``bundle_adjust`` takes the island (it used to raise): every reduced
-    solve is one float64 ``solve``, and the result matches the reference's
+    solve is one float64 ``solve_ex`` (the unchecked solve, which a CUDA
+    graph can capture), and the result matches the reference's
     ``bundle_adjust`` under x64."""
     import torch
 
@@ -96,9 +97,10 @@ def test_bundle_adjust_with_f64_island(rng, monkeypatch):
     tcfg = BackendConfig(**jcfg.__dict__)
     with jax.enable_x64(True):
         jout, jstats = jax.jit(lambda w: jschur.bundle_adjust(w, JCAM, jcfg))(jwindow)
-    solve, dtypes = torch.linalg.solve, []
-    monkeypatch.setattr(torch.linalg, "solve", lambda a, b: dtypes.append(a.dtype) or solve(a, b))
-    monkeypatch.setattr(torch.linalg, "lu_factor", None)     # the f32 path must not run
+    solve, dtypes = torch.linalg.solve_ex, []
+    monkeypatch.setattr(torch.linalg, "solve_ex",
+                        lambda a, b: dtypes.append(a.dtype) or solve(a, b))
+    monkeypatch.setattr(torch.linalg, "lu_factor_ex", None)  # the f32 path must not run
     tout, tstats = tschur.bundle_adjust(_port_window(jwindow), TCAM, tcfg)
     assert dtypes and set(dtypes) == {torch.float64}
     assert int(tstats.iterations) == int(jstats.iterations) > 0

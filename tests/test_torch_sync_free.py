@@ -1,0 +1,534 @@
+"""The port's keyframe branch without host reads, and its CUDA graphs.
+
+On the CPU:
+- a ``TorchDispatchMode`` counts the operators that read a device value back
+  to the host (``_local_scalar_dense``, behind ``int()``, ``bool()`` and
+  ``.item()``; ``nonzero``; indexing and ``index_put`` with a boolean mask;
+  ``masked_select``; the error checks of ``torch.linalg``). ``lm_loop``,
+  each ``bundle_adjust`` solve past its compaction choice, ``pnp_ransac`` and
+  ``add_keyframe`` read nothing at the defaults' full sizes (window 5, 448
+  feature slots, 2048 landmarks, 100 PnP hypotheses); the engine's keyframe
+  stretches read nothing but the plain versions of the hand kernels;
+- the masked ``lm_loop`` against the JAX ``lm_loop`` on the same numpy
+  problems, at each of its stops (the relative decrease under
+  ``lm_rel_tol``, a flat reject, saturated damping, the iteration limit at
+  odd ``max_lm_iters`` 7 and 9): the same number of updating iterations
+  (the reference's ``it``, read from its ``while_loop``) and of accepted
+  steps, the same damping, costs within the backend tolerance of
+  ``tests/test_torch_backend.py`` (rtol 1e-5 initial, 1e-4 final; poses
+  1e-4, landmarks 1e-3 m);
+- ``detect_corners`` (its plain NMS) bitwise the jitted JAX function on a
+  real frame and frame 0 of the photo and billboard worlds at 376x1241.
+
+The ``cuda`` tests need the card (``python -m pytest
+tests/test_torch_sync_free.py -m cuda --noconftest -q``): ``greedy_nms``
+(``csrc/greedy_nms.cu``) bitwise its plain version on frames 0-4 of the
+20-frame world, a photo frame, 1024 valid candidates in one conflict chain,
+none valid and candidates at the image corners, one launch per call; and
+the keyframe steps replayed from CUDA graphs bitwise the eager ones. JAX is
+imported inside the CPU tests only.
+"""
+
+import os
+
+import numpy as np
+import pytest
+import torch
+from torch.utils._python_dispatch import TorchDispatchMode
+
+from stereo_vo_tpu_torch.backend import schur as tschur
+from stereo_vo_tpu_torch.backend import window as twin
+from stereo_vo_tpu_torch.core.camera import CameraInfo
+from stereo_vo_tpu_torch.core.config import BackendConfig, FrontendConfig, load_config
+from stereo_vo_tpu_torch.frontend.pnp import pnp_ransac
+from stereo_vo_tpu_torch.ops import shi_tomasi as tst
+
+from torch_port_helpers import assert_close, assert_equal, to_torch
+
+aten = torch.ops.aten
+KITTI_CAM = CameraInfo(focal=718.856, cx=607.1928, cy=185.2157, baseline=0.537)
+SMALL_CAM = CameraInfo(focal=300.0, cx=160.0, cy=120.0, baseline=0.3)
+REAL = os.path.join(os.path.dirname(os.path.abspath(__file__)), "fixtures", "real")
+
+
+class HostReads(TorchDispatchMode):
+    """Counts the operators that read a tensor's value back to the host."""
+
+    ALWAYS = {aten._local_scalar_dense.default, aten.nonzero.default,
+              aten.masked_select.default, aten._linalg_check_errors.default}
+    MASKED = {aten.index.Tensor, aten.index_put.default, aten.index_put_.default,
+              aten._index_put_impl_.default}
+
+    def __init__(self):
+        super().__init__()
+        self.reads = []
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        kwargs = kwargs or {}
+        if func in self.ALWAYS:
+            self.reads.append(str(func))
+        elif func in self.MASKED and any(
+                isinstance(i, torch.Tensor) and i.dtype in (torch.bool, torch.uint8)
+                for i in args[1]):
+            self.reads.append(f"{func} with a boolean mask")
+        return func(*args, **kwargs)
+
+
+@pytest.mark.parametrize("read", ["int", "bool", "item", "nonzero", "mask_index", "mask_put"])
+def test_host_read_counter_sees_each_read(read):
+    x = torch.arange(6.0)
+    fns = {"int": lambda: int(x.sum()), "bool": lambda: bool(x.any()),
+           "item": lambda: x[2].item(), "nonzero": lambda: torch.nonzero(x),
+           "mask_index": lambda: x[x > 2], "mask_put": lambda: x.clone().index_put_((x > 2,),
+                                                                                    x[:3])}
+    with HostReads() as counter:
+        fns[read]()
+    assert len(counter.reads) >= 1, read
+    with HostReads() as counter:
+        torch.where(x > 2, x, 0.0).sum() + x[torch.tensor([1, 3])]
+    assert counter.reads == []
+
+
+def _full_window(seed, n_lm, cfg=BackendConfig()):
+    """A window at the defaults' capacities (5 keyframes, 448 slots, 2048
+    landmarks) observing ``n_lm`` landmarks at scattered ids, with pixel
+    noise, perturbed landmarks and poses, stereo priors and a carried
+    damping."""
+    rng = np.random.default_rng(seed)
+    w, f, lcap = cfg.window_size, cfg.feature_capacity, cfg.landmark_capacity
+    pts = np.stack([rng.uniform(-15, 15, n_lm), rng.uniform(-3, 3, n_lm),
+                    rng.uniform(8, 60, n_lm)], 1)
+    poses = np.zeros((w, 7), np.float32)
+    poses[:, 0] = 1
+    poses[:, 6] = -0.8 * np.arange(w)
+    obs_uv = np.zeros((w, f, 2), np.float32)
+    obs_lm = np.zeros((w, f), np.int32)
+    obs_valid = np.zeros((w, f), bool)
+    lm_slots = rng.permutation(lcap)[:n_lm].astype(np.int32)
+    for k in range(w):
+        seen = rng.permutation(n_lm)[:f]
+        seen = seen[rng.random(len(seen)) < 0.9]
+        pc = pts[seen] + poses[k, 4:]
+        uv = pc[:, :2] / pc[:, 2:3] * KITTI_CAM.focal + [KITTI_CAM.cx, KITTI_CAM.cy]
+        obs_uv[k, : len(seen)] = uv + rng.normal(size=uv.shape) * 0.7
+        obs_lm[k, : len(seen)] = lm_slots[seen]
+        obs_valid[k, : len(seen)] = True
+    lm_pos = np.zeros((lcap, 3), np.float32)
+    lm_valid = np.zeros(lcap, bool)
+    lm_pos[lm_slots] = pts + rng.normal(size=pts.shape) * 0.3
+    lm_valid[lm_slots] = True
+    refcount = np.zeros(lcap, np.int32)
+    np.add.at(refcount, obs_lm[obs_valid], 1)
+    lm_valid &= refcount > 0
+    lm_prior = lm_pos + rng.normal(size=lm_pos.shape).astype(np.float32) * 0.1
+    lm_prior_w = np.where(lm_valid, rng.uniform(0.5, 5, lcap), 0).astype(np.float32)
+    poses[1:, 4:] += rng.normal(size=(w - 1, 3)) * 0.05
+    return twin.WindowState(*to_torch([
+        poses, np.ones(w, bool), obs_uv, obs_lm, obs_valid, lm_pos, refcount, lm_valid,
+        lm_prior, lm_prior_w, np.int32(w), np.float32(1e-3)]))
+
+
+@pytest.fixture(scope="module")
+def small_window():
+    """Live landmarks under ``ba_compact_landmarks`` (512): the compacted solve."""
+    return _full_window(0, 420)
+
+
+@pytest.fixture(scope="module")
+def large_window():
+    """Live landmarks over 512: the full-capacity solve."""
+    return _full_window(1, 1500)
+
+
+def test_lm_loop_reads_nothing(large_window):
+    cfg = BackendConfig()
+    with HostReads() as counter:
+        prob = tschur.window_to_landmark_major(large_window)
+        out = tschur.lm_loop(prob, KITTI_CAM, cfg, init_lam=large_window.ba_lam)
+    assert counter.reads == []
+    assert float(out[3]) < 0.5 * float(out[2]) and int(out[4]) > 0
+
+
+@pytest.mark.parametrize("compact", [True, False])
+def test_bundle_adjust_solve_reads_nothing(small_window, large_window, compact):
+    cfg = BackendConfig()
+    window = small_window if compact else large_window
+    assert (int(window.lm_valid.sum()) <= cfg.ba_compact_landmarks) == compact
+    with HostReads() as counter:
+        out, stats = tschur.bundle_adjust(window, KITTI_CAM, cfg, compact=compact)
+    assert counter.reads == []
+    # the solve the choice reads its way to is the same solve
+    with HostReads() as counter:
+        chosen, chosen_stats = tschur.bundle_adjust(window, KITTI_CAM, cfg)
+    assert len(counter.reads) == 1
+    assert_equal(chosen.poses, out.poses, "poses")
+    assert_equal(chosen_stats.final_cost, stats.final_cost, "cost")
+    assert float(stats.final_cost) < float(stats.initial_cost)
+
+
+@pytest.mark.parametrize("full", [True, False])
+def test_add_keyframe_reads_nothing(large_window, full):
+    cfg = BackendConfig()
+    rng = np.random.default_rng(3)
+    f = cfg.feature_capacity
+    window = large_window if full else large_window._replace(
+        num_kf=torch.tensor(3, dtype=torch.int32),
+        pose_valid=torch.tensor([True, True, True, False, False]))
+    live = np.nonzero(window.lm_valid.numpy())[0]
+    tracked_lm = rng.permutation(live)[:f].astype(np.int32)
+    tracked_prior_pos = (rng.normal(size=(f, 3)) + [0, 0, 20]).astype(np.float32)
+    tracked_prior_pos[5] = np.inf
+    args = to_torch([np.array([1, 0, 0, 0, 0.1, 0, 0.9], np.float32),
+                     rng.uniform(0, 1241, (f, 2)).astype(np.float32), tracked_lm,
+                     rng.random(f) < 0.6, rng.uniform(0, 1241, (f, 2)).astype(np.float32),
+                     (rng.normal(size=(f, 3)) + [0, 0, 20]).astype(np.float32),
+                     rng.random(f) < 0.7, rng.uniform(0.1, 5, f).astype(np.float32),
+                     tracked_prior_pos,
+                     np.where(rng.random(f) < 0.5, rng.uniform(0.1, 3, f), 0).astype(np.float32)])
+    args[3][5] = False                       # the slot holding inf is masked
+    with HostReads() as counter:
+        out, new_ids, new_valid = twin.add_keyframe(window, cfg, *args)
+    assert counter.reads == []
+    assert int(out.num_kf) == int(window.num_kf) + 1 and int(new_valid.sum()) > 0
+    assert bool(torch.isfinite(out.lm_prior).all()) and bool(torch.isfinite(out.lm_pos).all())
+    assert int(out.pose_valid.sum()) == (5 if full else 4)
+
+
+def test_pnp_ransac_reads_nothing():
+    fc = FrontendConfig()
+    rng = np.random.default_rng(5)
+    f = BackendConfig().feature_capacity
+    pts = np.stack([rng.uniform(-15, 15, f), rng.uniform(-3, 3, f),
+                    rng.uniform(8, 60, f)], 1).astype(np.float32)
+    pose = np.array([0.9998, 0.01, -0.015, 0.005, 0.2, -0.05, -0.8], np.float32)
+    pose[:4] /= np.linalg.norm(pose[:4])
+    from stereo_vo_tpu_torch.core.geometry import pose_apply
+
+    pc = pose_apply(torch.from_numpy(pose)[None], torch.from_numpy(pts)).numpy()
+    uv = pc[:, :2] / pc[:, 2:3] * KITTI_CAM.focal + [KITTI_CAM.cx, KITTI_CAM.cy]
+    uv += rng.normal(size=uv.shape) * 0.5
+    uv[rng.random(f) < 0.15] += 40.0                              # outliers
+    valid = rng.random(f) < 0.7
+    prev = np.array([1, 0, 0, 0, 0.15, 0, -0.7], np.float32)
+    args = to_torch([pts, uv.astype(np.float32), valid, prev])
+    with HostReads() as counter:
+        res = pnp_ransac(args[0], args[1], args[2], KITTI_CAM, args[3],
+                         torch.tensor(17, dtype=torch.int32), fc)
+    assert counter.reads == []
+    assert bool(res.ok) and int(res.num_inliers) > 0.5 * valid.sum()
+    # the frame index as a tensor seeds the same draw as the Python int
+    same = pnp_ransac(args[0], args[1], args[2], KITTI_CAM, args[3], 17, fc)
+    assert_equal(res.pose, same.pose, "pose")
+    assert_equal(res.inliers, same.inliers, "inliers")
+
+
+def test_keyframe_stretches_read_nothing_but_the_plain_kernels(monkeypatch):
+    """The engine's three keyframe stretches on the CPU, on a keyframe of a
+    240x320 world: the only reads are the plain versions' of the hand
+    kernels, the greedy NMS's (one per round and one more) and sparse BM's
+    compaction choice (the card's kernels make none)."""
+    from stereo_vo_tpu_torch.core.config import PipelineConfig
+    from stereo_vo_tpu_torch.data.synthetic import SyntheticStereoSequence
+    from stereo_vo_tpu_torch.engine.step import VOEngine
+    from stereo_vo_tpu_torch.frontend.track import track_step
+    from stereo_vo_tpu_torch.ops import stereo_bm
+
+    cfg = PipelineConfig(camera=SMALL_CAM,
+                         frontend=FrontendConfig(min_distance=12.0, parallax_thresh=10.0),
+                         backend=BackendConfig(feature_capacity=384, landmark_capacity=1024,
+                                               max_lm_iters=8))
+    world = SyntheticStereoSequence(cam=SMALL_CAM, n_frames=3, shape=(240, 320), n_points=500,
+                                    seed=11, speed=0.35, yaw_rate=0.004, point_depth=(5.0, 18.0))
+    engine = VOEngine(cfg, (240, 320), device="cpu")
+    assert not engine.graphs
+    with pytest.raises(ValueError):
+        VOEngine(cfg, (240, 320), device="cpu", graphs=True)
+    state, _ = engine.bootstrap(engine.init_state(), *world.render(0))
+    state, _ = engine.step(state, *world.render(1))
+    left, right = (torch.from_numpy(a).to(torch.float32) for a in world.render(2))
+    pyr, _, resp = engine._preprocess(left)
+    tracked, _ = track_step(state.tracker, tuple(pyr), cfg.frontend)
+
+    plain_reads = {}
+
+    def counted(module, name):
+        plain = getattr(module, name)
+
+        def run(*args, **kwargs):
+            before = len(counter.reads)
+            out = plain(*args, **kwargs)
+            plain_reads[name] = plain_reads.get(name, 0) + len(counter.reads) - before
+            return out
+
+        monkeypatch.setattr(module, name, run)
+
+    counted(tst, "greedy_nms_ref")
+    counted(stereo_bm, "stereo_bm_at_ref")
+    with HostReads() as counter:
+        res = engine._pnp(state.window.lm_pos, tracked.feat_ids, tracked.feat_xy,
+                          tracked.feat_valid, state.pnp_pose, state.frame_idx)
+        prep = engine._keyframe_prep(left, right, res.pose, res.inliers, tracked.feat_xy,
+                                     tracked.feat_ids, tracked.feat_valid, state.window, resp)
+        window, det_xy, inlier_valid, new_ids, new_valid, live = prep
+        outs = [engine._keyframe_solve(compact, window, det_xy, inlier_valid, new_ids,
+                                       new_valid, tracked.feat_xy, tracked.feat_ids,
+                                       tracked.flow_xy, tracked.flow_valid)
+                for compact in (True, False)]
+    assert plain_reads["greedy_nms_ref"] >= 2 and plain_reads["stereo_bm_at_ref"] == 1
+    assert len(counter.reads) == sum(plain_reads.values()), counter.reads
+    assert bool(res.ok) and int(live) > 0
+    for out in outs:
+        assert int(out[3][2]) > 0                            # accepted LM steps
+
+
+# ---------------------------------------------------------------------------
+# the masked LM loop against the reference's while_loop
+
+def _lm_problem(seed, lm_jitter, pose_jitter, nan_obs=False, flat=False):
+    """A 3-pose, 64-landmark problem (``parallel/dryrun.py::make_lm_problem``)
+    with perturbed landmarks and poses and stereo priors; ``nan_obs`` puts a
+    NaN into one observation, so every step is rejected; ``flat`` drops
+    every observation and puts each landmark at its prior, so no step can
+    change the cost."""
+    from stereo_vo_tpu_torch.parallel.dryrun import make_lm_problem
+
+    p = make_lm_problem(3, 64, SMALL_CAM, noise=0.5, seed=seed)
+    rng = np.random.default_rng(seed + 100)
+    lm = (p.lm_pos + rng.normal(size=p.lm_pos.shape) * lm_jitter).astype(np.float32)
+    poses = p.poses.copy()
+    poses[:, 4:] += (rng.normal(size=(3, 3)) * pose_jitter).astype(np.float32)
+    p = p._replace(lm_pos=lm, poses=poses, lm_prior_w=np.full(64, 0.5, np.float32))
+    if nan_obs:
+        obs = p.obs_uv.copy()
+        obs[5, 1, 0] = np.nan
+        p = p._replace(obs_uv=obs)
+    if flat:
+        p = p._replace(obs_valid=np.zeros_like(p.obs_valid), lm_prior=p.lm_pos.copy())
+    return p
+
+
+# (stop, problem, config): the relative-decrease stop after 3 accepted steps;
+# a flat reject (no observation, landmarks at their priors); saturated
+# damping (every step rejected: lam doubles its doubling until max_damping);
+# the iteration limit at odd max_lm_iters, a heavy damping keeping every
+# step accepted well above lm_rel_tol (8 and 10 iterations: pairs)
+LM_CASES = {
+    "rel_tol": (dict(lm_jitter=0.05, pose_jitter=0.02), {}),
+    "flat_reject": (dict(lm_jitter=0.0, pose_jitter=0.0, flat=True), {}),
+    "damping_saturation": (dict(lm_jitter=0.3, pose_jitter=0.05, nan_obs=True),
+                           dict(max_damping=1e-1)),
+    "max_iters_7": (dict(lm_jitter=0.3, pose_jitter=0.05),
+                    dict(lm_rel_tol=1e-6, init_damping=1e4, max_lm_iters=7)),
+    "max_iters_9": (dict(lm_jitter=0.3, pose_jitter=0.05),
+                    dict(lm_rel_tol=1e-6, init_damping=1e4, max_lm_iters=9)),
+}
+# what each stop gives: (updating iterations, accepted steps)
+LM_STOPS = {"rel_tol": (3, 3), "flat_reject": (1, 0), "damping_saturation": (5, 0),
+            "max_iters_7": (8, 8), "max_iters_9": (10, 10)}
+
+
+def _jax_lm_loop(jprob, jcam, jcfg):
+    """The JAX ``lm_loop``, jitted, and its ``while_loop``'s final ``it``."""
+    import jax
+
+    from stereo_vo_tpu.backend import schur as jschur
+
+    while_loop = jax.lax.while_loop
+    carry = {}
+
+    def recording(cond, body, init):
+        out = while_loop(cond, body, init)
+        carry["it"] = out[7]
+        return out
+
+    def run(p):
+        return jschur.lm_loop(p, jcam, jcfg, None), carry["it"]
+
+    jax.lax.while_loop = recording
+    try:
+        return jax.jit(run)(jprob)
+    finally:
+        jax.lax.while_loop = while_loop
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+@pytest.mark.parametrize("case", list(LM_CASES))
+def test_masked_lm_loop_matches_reference(case, seed):
+    from stereo_vo_tpu.backend import schur as jschur
+    from stereo_vo_tpu.core.camera import CameraInfo as JCameraInfo
+    from stereo_vo_tpu.core.config import BackendConfig as JBackendConfig
+
+    from torch_port_helpers import to_jax
+
+    prob_kw, cfg_kw = LM_CASES[case]
+    kw = dict(window_size=3, landmark_capacity=64, feature_capacity=64, max_features=64,
+              **cfg_kw)
+    prob = _lm_problem(seed, **prob_kw)
+    jcam = JCameraInfo(**SMALL_CAM.__dict__)
+    (jp, jl, jc0, jc1, jacc, _, jlam), jit = _jax_lm_loop(
+        jschur.LandmarkMajorProblem(*to_jax(list(prob))), jcam, JBackendConfig(**kw))
+    tp, tl, tc0, tc1, tacc, _, tlam, tit = tschur._lm_run(
+        tschur.LandmarkMajorProblem(*to_torch(list(prob))), SMALL_CAM, BackendConfig(**kw))
+
+    assert (int(tit), int(tacc)) == (int(jit), int(jacc)) == LM_STOPS[case]
+    assert_equal(tlam, np.asarray(jlam), "final damping")
+    if case == "damping_saturation":                      # NaN costs: nothing moved
+        assert_equal(tp, np.asarray(prob.poses), "poses")
+        return
+    assert_close(tc0, jc0, atol=0, rtol=1e-5, what="initial cost")
+    assert_close(tc1, jc1, atol=1e-6, rtol=1e-4, what="final cost")
+    assert_close(tp, jp, atol=1e-4, what="poses")
+    assert_close(tl, jl, atol=1e-3, rtol=1e-4, what="landmarks")
+
+
+def test_lm_trip_is_the_reference_while_loop():
+    """Pairs of bodies while fewer than max_lm_iters updated."""
+    assert [tschur.lm_trip(n) for n in range(1, 11)] == [2, 2, 4, 4, 6, 6, 8, 8, 10, 10]
+
+
+# ---------------------------------------------------------------------------
+# detection: the plain NMS against the jitted reference
+
+def _frame(name):
+    """``name``'s left image as float32 at 376x1241: a real frame, or frame 0
+    of the photo world (seed 11) or of the billboard world."""
+    if name == "real3":
+        import cv2
+
+        return cv2.imread(os.path.join(REAL, "image_0", "000003.png"),
+                          cv2.IMREAD_GRAYSCALE).astype(np.float32)
+    from stereo_vo_tpu_torch.data.synthetic import SyntheticStereoSequence, load_sample_photo
+
+    cam = load_config("kitti00").camera
+    world = (dict(n_frames=161, n_points=3000, seed=11, speed=0.9, yaw_rate=0.004,
+                  texture=load_sample_photo()) if name == "photo0" else
+             dict(n_frames=20, n_points=4000, seed=0, speed=0.8, yaw_rate=0.003))
+    return SyntheticStereoSequence(cam=cam, shape=(376, 1241), **world).render(0)[0].astype(
+        np.float32)
+
+
+@pytest.mark.parametrize("name", ["real3", "photo0", "billboard0"])
+def test_detect_corners_plain_matches_jitted_reference(name):
+    import jax
+
+    from stereo_vo_tpu.ops import shi_tomasi as jst
+
+    from torch_port_helpers import to_jax
+
+    fc = FrontendConfig()
+    img = _frame(name)
+    kw = dict(max_corners=fc.max_detect, quality_level=fc.quality_level,
+              min_distance=fc.min_distance, block_size=fc.detect_block_size)
+    want = jax.jit(lambda x: jst.detect_corners(x, **kw))(to_jax(img))
+    got = tst.detect_corners(to_torch(img), **kw)
+    assert int(got[2].sum()) > 50
+    for g, w, what in zip(got, want, ("xy", "response", "valid")):
+        assert_equal(g, w, what)
+
+
+# ---------------------------------------------------------------------------
+# on the card
+
+def _card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    return torch.device("cuda")
+
+
+def _nms_inputs(name, dev):
+    """``(cxy, cvalid, r2)`` on ``dev`` for each of the kernel's cases."""
+    fc = FrontendConfig()
+    r2 = fc.min_distance * fc.min_distance
+    if name.startswith("billboard") or name == "photo0":
+        from stereo_vo_tpu_torch.data.synthetic import SyntheticStereoSequence, load_sample_photo
+
+        cam = load_config("kitti00").camera
+        if name == "photo0":
+            world = SyntheticStereoSequence(cam=cam, shape=(376, 1241), n_frames=161,
+                                            n_points=3000, seed=11, speed=0.9, yaw_rate=0.004,
+                                            texture=load_sample_photo())
+            img = world.render(0)[0]
+        else:
+            world = SyntheticStereoSequence(cam=cam, shape=(376, 1241), n_frames=20,
+                                            n_points=4000, seed=0, speed=0.8, yaw_rate=0.003)
+            img = world.render(int(name[9:]))[0]
+        cxy, cvals = tst.corner_candidates(
+            torch.from_numpy(img).to(dev).to(torch.float32), fc.quality_level,
+            fc.min_distance, fc.detect_block_size)
+        return cxy, cvals > 0, r2
+    if name == "chain1024":              # each conflicts with its neighbours only
+        x = torch.arange(1024, dtype=torch.float32)
+        cxy = torch.stack([x, torch.full_like(x, 7.0)], 1)
+        return cxy.to(dev), torch.ones(1024, dtype=torch.bool, device=dev), 4.0
+    if name == "none_valid":
+        cxy = torch.rand(1024, 2, generator=torch.Generator().manual_seed(0)) * 1000
+        return cxy.floor().to(dev), torch.zeros(1024, dtype=torch.bool, device=dev), r2
+    # image corners: clusters at the four corners of a 376x1241 frame
+    gen = torch.Generator().manual_seed(1)
+    corners = torch.tensor([[0.0, 0.0], [1240.0, 0.0], [0.0, 375.0], [1240.0, 375.0]])
+    off = torch.randint(0, 40, (1024, 2), generator=gen).to(torch.float32)
+    sign = torch.where(corners > 0, -1.0, 1.0)
+    cxy = corners[torch.arange(1024) % 4] + off * sign[torch.arange(1024) % 4]
+    valid = torch.rand(1024, generator=gen) < 0.9
+    return cxy.to(dev), valid.to(dev), r2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["billboard0", "billboard1", "billboard2", "billboard3",
+                                  "billboard4", "photo0", "chain1024", "none_valid",
+                                  "corners"])
+def test_cuda_greedy_nms_equals_plain_version(name):
+    dev = _card()
+    cxy, cvalid, r2 = _nms_inputs(name, dev)
+    before = tst.greedy_nms.launches
+    got = tst.greedy_nms(cxy, cvalid, r2)
+    torch.cuda.synchronize()
+    assert tst.greedy_nms.launches == before + 1
+    want = tst.greedy_nms_ref(cxy, cvalid, r2)
+    assert_equal(got.cpu(), want.cpu(), name)
+    if name == "chain1024":
+        assert_equal(got.cpu(), (torch.arange(1024) % 2 == 0), "every other one")
+    if name == "none_valid":
+        assert not bool(got.any())
+
+
+@pytest.mark.cuda
+def test_cuda_greedy_nms_raises_over_its_block():
+    dev = _card()
+    with pytest.raises(ValueError):
+        tst.greedy_nms(torch.zeros(1025, 2, device=dev), torch.ones(1025, dtype=torch.bool,
+                                                                    device=dev), 4.0)
+
+
+@pytest.mark.cuda
+def test_cuda_graph_replayed_keyframes_equal_eager():
+    """Frames 0-7 of the 20-frame world (every step a keyframe) with the
+    keyframe branch replayed from CUDA graphs and run eagerly: every
+    summary, and the final state, bitwise equal."""
+    from stereo_vo_tpu_torch.data.synthetic import SyntheticStereoSequence
+    from stereo_vo_tpu_torch.engine.step import VOEngine
+
+    dev = _card()
+    cfg = load_config("kitti00")
+    world = SyntheticStereoSequence(cam=cfg.camera, shape=(376, 1241), n_frames=20,
+                                    n_points=4000, seed=0, speed=0.8, yaw_rate=0.003)
+    frames = [world.render(i) for i in range(8)]
+    runs = {}
+    for graphs in (True, False):
+        engine = VOEngine(cfg, (376, 1241), device=dev, graphs=graphs)
+        state, out = engine.bootstrap(engine.init_state(), *frames[0])
+        rows = [out.summary.cpu()]
+        for left, right in frames[1:]:
+            state, out = engine.step(state, left, right)
+            rows.append(out.summary.cpu())
+        runs[graphs] = (torch.stack(rows), state, engine)
+    assert int(runs[True][0][:, 7].sum()) >= 6                  # keyframes
+    assert sorted(runs[True][2].stretches) == ["keyframe_prep", "pnp", "solve_compact",
+                                                 "solve_full"]
+    assert_equal(runs[True][0], runs[False][0], "summaries")
+    from stereo_vo_tpu_torch.engine.graphs import flatten
+
+    got, _ = flatten(runs[True][1])
+    want, _ = flatten(runs[False][1])
+    for g, w in zip(got, want):
+        assert_equal(g.cpu(), w.cpu(), "state")
