@@ -8,13 +8,18 @@ It needs one card, no network and no arguments, and it imports nothing of
 JAX or of the JAX package. Phases, each fatal on failure:
 
 1. device: print the card (``nvidia-smi`` name and power limit) and the
-   CUDA version; switch TF32 off; load the photo texture the port ships
-   (``data/grace_hopper.jpg``, no matplotlib on the card's machine) and
-   print its shape;
-2. build: compile the four CUDA sources, ``stereo_vo_tpu_torch/csrc/
-   extract_regions.cu``, ``lk_level.cu``, ``stereo_bm_at.cu`` and
-   ``greedy_nms.cu``, one nvcc each, started together, and print each
-   build's seconds and what ptxas reports;
+   CUDA version; switch TF32 off; log whether this PyTorch binds CUDA-graph
+   conditional nodes (``begin_capture_to_if_node``,
+   ``get_currently_capturing_graph``), its CUDA version and the driver's,
+   and probe the port's own conditional node (``csrc/graph_cond.cu``
+   through ``engine/graphs.py``): an IF on a 0-d bool on the card with the
+   body ``x.add_(1)``, captured once and replayed with each value; load the
+   photo texture the port ships (``data/grace_hopper.jpg``, no matplotlib on
+   the card's machine) and print its shape;
+2. build: compile the five CUDA sources, ``stereo_vo_tpu_torch/csrc/
+   extract_regions.cu``, ``lk_level.cu``, ``stereo_bm_at.cu``,
+   ``greedy_nms.cu`` and ``graph_cond.cu``, one nvcc each, started
+   together, and print each build's seconds and what ptxas reports;
 3. region-extraction kernel check: the kernel against its plain PyTorch
    version (``extract_regions_ref``) at the shapes the main path gives it,
    at a stack over 6 MiB (where the JAX package takes its tiled variant) and
@@ -39,7 +44,12 @@ JAX or of the JAX package. Phases, each fatal on failure:
    guess sits at 25 of ``LK_SLACK_TOP`` = 26 px), ``lk_track_fwdbwd``
    through the kernel against the same call through the plain version: no
    fwd/bwd flag flipped, positions within ``LK_POS_TOL``, the survivors on
-   the known shift;
+   the known shift; and at ``LK_INACTIVE_SHAPES`` every other slot inactive
+   (the tracker runs its whole capacity): the inactive slots' outputs
+   bitwise the plain version's (the centre bitwise the all-active kernel's
+   and within ``LK_CENTER_RTOL`` of the plain one), the active slots
+   bitwise the all-active call's, the device time per launch beside the
+   all-active one;
 3c. sparse StereoBM kernel check: ``stereo_bm_at`` against
    ``stereo_bm_at_ref`` on frames 0-1 of phase 4's world and pairs 0-1 of
    ``tests/fixtures/real``, bitwise (``torch.equal``: uint8 images make
@@ -66,13 +76,16 @@ JAX or of the JAX package. Phases, each fatal on failure:
    exactly one ``lk_level_pass`` launch per LK level pass (forward plus
    backward), exactly one ``stereo_bm_at`` and one ``greedy_nms`` launch per
    keyframe (bootstrap included) and no ``extract_regions`` launch, and the
-   aligned keyframe ATE; the keyframe branch runs from CUDA graphs (the
-   engine's default on the card) here and in every later phase; then (4b)
-   ``utils.profiling.profile_keyframes`` streams the same world and profiles
+   aligned keyframe ATE; the whole step runs as one CUDA graph whose
+   decisions are conditional nodes (the engine's default on the card) here
+   and in every later phase; then (4b), in a child process (a long
+   process's profiler drops kernels of the graph's conditional bodies; 4d
+   and 6b run in their own too), ``utils.profiling.profile_keyframes``
+   streams the same world and profiles
    steps 8-11: kernel and graph launches, syncs and device ms per keyframe
    step, each kernel's launches in the device trace equal to its wrapper's
-   count, at most ``BRANCH_SYNCS_MAX`` syncs inside each keyframe branch,
-   step p50; then the
+   count, each step (with its summary fetch) one graph launch, no kernel
+   launch and at most ``STEP_SYNCS_MAX`` syncs, step p50; then the
    Shi-Tomasi response on frame 0 of the photo world (phase 5b's): the pixels
    where the card's differs from the CPU's (want 0, single image and a stack
    of three), and its device time per frame beside the former formula's;
@@ -86,15 +99,23 @@ JAX or of the JAX package. Phases, each fatal on failure:
    printed. Then ``sample_hypotheses`` on ``cuda``, under
    ``torch.cuda.set_sync_debug_mode("error")`` (any host sync raises), on
    the stored valid masks of ``pnp_draws.npz``: the stored JAX indices,
-   bitwise; and its host ms per draw;
-4d. graphs against eager: the same 20 frames streamed by an engine with
-   ``graphs=True`` and one with ``graphs=False``: every summary (pose
-   included) and the final state bitwise equal; steps 8-19 of the graph run
-   profiled: at most ``BRANCH_SYNCS_MAX`` host syncs inside each keyframe
-   branch (its ``record_function`` range), each kernel's launches in the
-   trace equal to its wrapper's count, one BM and one NMS launch per
-   keyframe; each stretch's replays and launches per replay, both runs' step
-   p50;
+   bitwise; and its host ms per draw; then ``GEOMETRIES``: the billboard
+   world's 12 frames at ``kitti03`` (375x1242) and ``d435i`` (480x640), each
+   through its own step graph, held to ``kitti03_w12.npz`` as above and to
+   ``d435i_w12.npz`` by the divergence rule (its reference's nudged reruns
+   part), poses within ``GEOMETRY_TRAJ_TOL``, launches exact, and each
+   bitwise equal to the same world run eagerly;
+4d. graphs against eager, in a child process: the same 20 frames streamed
+   by an engine with ``graphs=True`` and one with ``graphs=False``: every
+   summary (pose included) and the final state bitwise equal; steps 8-19 of
+   the graph run profiled: each step one graph launch, no kernel launch and at most
+   ``STEP_SYNCS_MAX`` syncs with its summary fetch, each kernel's launches
+   in the trace equal to its wrapper's count, one BM and one NMS launch per
+   keyframe; the masked LM bodies' device time; then the 129-frame world of
+   phase 5 chunked by 64 with preload, graph against eager: every summary
+   and the final state bitwise equal; and one profiled ``replay_chunk`` of
+   64 frames (``utils.profiling.profile_chunk``): at most
+   ``CHUNK_SYNCS_MAX`` syncs inside it and one graph launch per frame;
 5. chunked replay with preload: ``run_vo(chunk_size=64, preload_device=True,
    checkpoint_every=65, out_dir=...)`` on ``cuda`` over the bench's
    129-frame world (bootstrap + two chunks of 64; same parameters as
@@ -115,10 +136,13 @@ JAX or of the JAX package. Phases, each fatal on failure:
 6. resume: ``run_vo(resume_from=<phase 5's checkpoint>, chunk_size=64)``
    over the same frames gives exactly frames 65-128, finite, the first
    within ``RESUME_TOL`` of phase 5's pose for frame 65, launches as in
-   phase 4; then (6b) ``utils.profiling.profile_replay`` streams frames
-   0-80 of that world and profiles frames 65-72: launches, syncs and device
-   ms per frame, the LK kernel's launches in the device trace, step and
-   ``track_step`` p50;
+   phase 4; then (6b), in a child process,
+   ``utils.profiling.profile_replay`` streams frames 0-80 of that world and
+   profiles frames 65-72: launches, syncs and device
+   ms per frame and per cruise and keyframe step (the device's busy share of
+   a cruise step), each step one graph launch with at most
+   ``STEP_SYNCS_MAX`` syncs, the LK kernel's launches in the device trace,
+   step and ``track_step`` p50;
 7. the CLI on real imagery: a child process runs
    ``python -m stereo_vo_tpu_torch.cli run`` on ``tests/fixtures/real``
    (5 KITTI-layout 376x1241 pairs with ground truth) on ``cuda``, with cv2,
@@ -315,10 +339,23 @@ BM_SETS = ("bootstrap_n300", "keyframe_n748_le320", "keyframe_n748_all_valid",
 BM_HEADLINE = "synthetic keyframe_n748_le320"
 # phase 3d: the headline greedy-NMS set (frame 0's candidate pool)
 NMS_HEADLINE = "billboard0"
-# phase 4d: host syncs allowed inside one keyframe branch (PnP's ok and the
-# compaction choice are its only reads), and the steps it profiles
-BRANCH_SYNCS_MAX = 3
+# phases 4b, 4d and 6b: host syncs allowed per streamed step (the step is one
+# graph launch with no read; the summary fetch is the one wait) and inside
+# replay_chunk, between its first frame and its last (none), and the steps
+# phase 4d profiles
+STEP_SYNCS_MAX = 1
+CHUNK_SYNCS_MAX = 0
 GRAPH_PROFILED = (8, 20)
+# phase 4c: the other shipped geometries through their own step graphs, each
+# held to its stored JAX run by the rule the CPU tests hold it to
+# (tests/test_torch_trajectory.py): kitti03 frame by frame, d435i (whose
+# reference's nudged reruns part from it) by the divergence rule; the pose
+# tolerance is those tests' TRAJ_TOL
+GEOMETRIES = (("kitti03", "kitti03_w12.npz"), ("d435i", "d435i_w12.npz"))
+GEOMETRY_TRAJ_TOL = 1e-4
+# phase 3b: the level pass with every other slot inactive (the tracker's
+# capacity at full width), at these of LK_SHAPES
+LK_INACTIVE_SHAPES = ("l0_56_n160", "l0_56_n448")
 # the card's published rates (H100 SXM): HBM bytes/s and f32 FLOP/s outside
 # the tensor cores
 HBM_BYTES_PER_S = 3.35e12
@@ -329,17 +366,57 @@ def _log(msg: str) -> None:
     print(msg, flush=True)
 
 
+_START = time.perf_counter()
+
+
+def _phase(name: str) -> None:
+    """Log the start of a phase with the seconds since the script began."""
+    _log(f"phase {name} at {time.perf_counter() - _START:.1f} s")
+
+
 def _check(ok: bool, what) -> None:
     if not ok:
         raise RuntimeError(f"chip_smoke check failed: {what}")
 
 
-def _nvidia_smi() -> str:
+def _nvidia_smi(query="name,power.limit") -> str:
     out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        ["nvidia-smi", f"--query-gpu={query}", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60, check=True,
     )
     return out.stdout.strip().splitlines()[0]
+
+
+def _conditional_probe(torch, dev) -> dict:
+    """Phase 1: whether this PyTorch binds CUDA-graph conditional nodes, and
+    the port's own (``csrc/graph_cond.cu`` through ``engine/graphs.py``): an
+    IF on a 0-d bool on the card whose body is ``x.add_(1)``, captured once
+    and replayed once with each value of the bool."""
+    from stereo_vo_tpu_torch.engine import graphs
+
+    bound = {name: hasattr(torch.cuda.CUDAGraph, name)
+             for name in ("begin_capture_to_if_node", "end_capture_to_conditional_node",
+                          "get_currently_capturing_graph")}
+    x = torch.zeros((), dtype=torch.float32, device=dev)
+
+    def body(carry, inputs):
+        (x,), (pred,) = carry, inputs
+        return (graphs.cond(pred, lambda v: v + 1, lambda v: v, (x,)),), ()
+
+    program = graphs.Program("probe", body)
+    flag = torch.zeros((), dtype=torch.bool, device=dev)
+    carry, _ = program((x,), (flag,))               # eager, then the capture
+    seen = []
+    for value in (True, False):
+        flag.fill_(value)
+        carry, _ = program(carry, (flag,))
+        seen.append(float(carry[0]))
+    out = {"torch_binds": bound, "torch_cuda": torch.version.cuda,
+           "driver": _nvidia_smi("driver_version"), "port_if_node": {"replayed": seen,
+                                                                      "want": [1.0, 1.0]}}
+    _log("conditional nodes: " + json.dumps(out))
+    _check(seen == [1.0, 1.0], f"the IF node ran its body only when its bool held: {seen}")
+    return out
 
 
 def _inputs(torch, gen, c, hp, wp, ry, rx, n, device):
@@ -637,6 +714,63 @@ def _lk_level_check(torch, cfg, world, dev) -> dict:
     return {**head, "max_abs_err": max_px}
 
 
+def _lk_inactive_check(torch, cfg, world, dev) -> dict:
+    """Phase 3b, inactive slots: at ``LK_INACTIVE_SHAPES`` (forward role),
+    the kernel with every other slot inactive against ``lk_level_pass_ref``
+    on the same arguments: the inactive slots' guess, solvable, in_region
+    and iteration count bitwise, their centre bitwise the all-active
+    kernel's (one summation) and within ``LK_CENTER_RTOL`` of the plain
+    version's; the active slots bitwise the all-active kernel's and within
+    the ``LK_*`` tolerances of the plain version's; the device time per
+    launch beside the all-active one's."""
+    from stereo_vo_tpu_torch.frontend.detect import detect_features
+    from stereo_vo_tpu_torch.ops.lk import lk_level_pass, lk_level_pass_ref
+    from stereo_vo_tpu_torch.ops.pyramid import build_pyramid
+
+    fc = cfg.frontend
+    pyrs = [build_pyramid(torch.from_numpy(world.render(i)[0]).to(dev), fc.lk_max_level)
+            for i in (0, 1)]
+    xy, valid = detect_features(pyrs[0][0], fc)
+    corners = xy[valid]
+    gen = torch.Generator(device="cpu").manual_seed(2)
+    out = {}
+    for label, lvl, top, n in LK_SHAPES:
+        if label not in LK_INACTIVE_SHAPES:
+            continue
+        full, _ = _lk_pass_args(torch, gen, pyrs[0][lvl], pyrs[1][lvl], corners, lvl, top, n, fc)
+        full[6] = torch.ones(n, dtype=torch.bool, device=dev)
+        half = list(full)
+        half[6] = torch.arange(n, device=dev) % 2 == 0
+        got = lk_level_pass(*half)
+        all_active = lk_level_pass(*full)
+        want = lk_level_pass_ref(*half)
+        torch.cuda.synchronize()
+        off, on = ~half[6], half[6]
+        same_off = {name: bool(torch.equal(got[k][off], want[k][off]))
+                    for k, name in ((0, "guess"), (1, "solvable"), (2, "inside"),
+                                    (4, "iterations"))}
+        center_rel = float(((got[3][off] - want[3][off]).abs()
+                            / want[3][off].abs().clamp(min=1.0)).max())
+        same_center = bool(torch.equal(got[3][off], all_active[3][off]))
+        same_on = all(bool(torch.equal(g[on], a[on])) for g, a in zip(got, all_active))
+        err = _compare_pass(torch, f"{label} half inactive", got, want, half)
+        half_us = _device_us(torch, lambda: lk_level_pass(*half), "lk_level_kernel",
+                             lk_level_pass)
+        full_us = _device_us(torch, lambda: lk_level_pass(*full), "lk_level_kernel",
+                             lk_level_pass)
+        out[label] = {"inactive_bitwise": same_off, "inactive_center_rel": center_rel,
+                      "inactive_center_equals_all_active": same_center,
+                      "active_equal_all_active": same_on, "active": err,
+                      "device_us_half_inactive": half_us, "device_us_all_active": full_us}
+        _log(f"check lk {label} forward, every other slot inactive: " + json.dumps(out[label]))
+        _check(all(same_off.values()), f"{label}: inactive slots differ from the plain version "
+                                       f"{same_off}")
+        _check(same_center and center_rel <= LK_CENTER_RTOL,
+               f"{label}: inactive centres {center_rel}, equal to all-active {same_center}")
+        _check(same_on, f"{label}: active slots differ from the all-active call")
+    return out
+
+
 def _fast_motion_check(torch, dev) -> float:
     """Phase 3b, fast motion: ``lk_track_fwdbwd`` through the kernel against
     the same call through ``lk_level_pass_ref`` on tests/test_lk_fast_motion.py's
@@ -894,19 +1028,37 @@ def _nms_check(torch, cfg, world, photo, dev) -> dict:
     return {**head, "max_abs_err": max_err}
 
 
+def _check_streamed_steps(what, steps) -> None:
+    """Each profiled streamed step (the step call and its summary fetch) is
+    one graph launch with no kernel launch of its own and at most
+    ``STEP_SYNCS_MAX`` syncs."""
+    _check(bool(steps) and all(s["syncs"] <= STEP_SYNCS_MAX and s["graph_launches"] == 1
+                               and s["launches"] == 0 for s in steps),
+           f"{what}: per step syncs, graph and kernel launches "
+           f"{[(s['syncs'], s['graph_launches'], s['launches']) for s in steps]}")
+
+
 def _stream_profiled(torch, cfg, frames, dev, graphs):
-    """Phase 4d's run: ``frames`` streamed by a fresh engine, steps
-    ``GRAPH_PROFILED`` under ``torch.profiler``, the windows that the
-    bundle adjustments of those steps start from recorded. Returns
-    ``(summaries, state, engine, prof, wrapper launches over the profiled
-    steps, keyframes there, [(window, compact), ...])``."""
+    """Phase 4d's streamed run: ``frames`` streamed by a fresh engine; with
+    ``graphs``, steps ``GRAPH_PROFILED`` under ``torch.profiler``; without,
+    the windows that the bundle adjustments of the first four of those
+    steps start from recorded. Returns ``(summaries, state, engine, prof or
+    None, wrapper launches over those steps, keyframe flags there,
+    [(window, compact), ...])``."""
+    import contextlib
+
     from stereo_vo_tpu_torch.engine import step as step_module
-    from stereo_vo_tpu_torch.engine.step import VOEngine, parse_summary
-    from stereo_vo_tpu_torch.utils.profiling import PORT_KERNELS, device_trace, wrapper_launches
+    from stereo_vo_tpu_torch.engine.step import VOEngine
+    from stereo_vo_tpu_torch.utils.profiling import (
+        PORT_KERNELS,
+        _step,
+        device_trace,
+        wrapper_launches,
+    )
 
     engine = VOEngine(cfg, IMAGE_SHAPE, device=dev, graphs=graphs)
     state, out = engine.bootstrap(engine.init_state(), frames[0].left, frames[0].right)
-    rows, kf, windows = [out.summary.cpu()], 0, []
+    rows, kf, windows = [out.summary.cpu()], [], []
     first, end = GRAPH_PROFILED
     solve = step_module.bundle_adjust
 
@@ -917,17 +1069,19 @@ def _stream_profiled(torch, cfg, frames, dev, graphs):
     for i in range(1, first):
         state, out = engine.step(state, frames[i].left, frames[i].right)
         rows.append(out.summary.cpu())
+    engine.flush_launches()
     before = wrapper_launches()
-    with device_trace() as prof:
+    with device_trace() if graphs else contextlib.nullcontext() as prof:
         for i in range(first, end):
             if not graphs and i < first + 4:
                 step_module.bundle_adjust = recording
             try:
-                state, out = engine.step(state, frames[i].left, frames[i].right)
+                state, vec, row = _step(engine, state, frames[i])
             finally:
                 step_module.bundle_adjust = solve
-            rows.append(out.summary.cpu())
-            kf += int(parse_summary(rows[-1])[1]["is_keyframe"])
+            rows.append(torch.from_numpy(vec))
+            kf.append(row["is_keyframe"])
+    engine.flush_launches()
     after = wrapper_launches()
     counted = {k: after[k] - before[k] for k in PORT_KERNELS}
     return torch.stack(rows), state, engine, prof, counted, kf, windows
@@ -973,53 +1127,151 @@ def _lm_masking(torch, cfg, windows) -> dict:
 
 
 def _graph_phase(torch, cfg, frames, dev) -> dict:
-    """Phase 4d: the 20-frame world streamed with the keyframe branch
-    replayed from CUDA graphs and run eagerly; every summary and the final
-    state bitwise equal; steps ``GRAPH_PROFILED`` of each run under
-    ``torch.profiler``: in the graph run at most ``BRANCH_SYNCS_MAX`` host
-    syncs in each keyframe branch (its profiler range), the wrappers'
-    launches equal to the kernels in the trace; and the masked LM bodies'
-    device time per keyframe (``_lm_masking``)."""
+    """Phase 4d: the whole step as one graph program against the same step
+    run eagerly (``graphs=False``): the 20-frame world streamed, every
+    summary and the final state bitwise equal; steps ``GRAPH_PROFILED`` of
+    each run under ``torch.profiler``: in the graph run each step one graph
+    launch, no kernel launch and at most ``STEP_SYNCS_MAX`` syncs with its
+    summary fetch, the wrappers' launches equal to the kernels in the trace,
+    one BM and one NMS launch per keyframe; the masked LM bodies' device
+    time per keyframe (``_lm_masking``); then the 129-frame world chunked by
+    ``CHUNK`` with preload, graph against eager, every summary and the final
+    state bitwise equal; and one profiled chunk (``profile_chunk``): no more
+    than ``CHUNK_SYNCS_MAX`` syncs inside ``replay_chunk``, one graph launch
+    per frame."""
     import numpy as np
 
+    from stereo_vo_tpu_torch.data.synthetic import SyntheticStereoSequence
+    from stereo_vo_tpu_torch.engine.driver import run_vo
     from stereo_vo_tpu_torch.engine.graphs import flatten
-    from stereo_vo_tpu_torch.utils.profiling import BRANCH_RANGE, PORT_KERNELS, _trace_counts
+    from stereo_vo_tpu_torch.engine.step import VOEngine
+    from stereo_vo_tpu_torch.eval.parity import run_summaries
+    from stereo_vo_tpu_torch.utils.profiling import PORT_KERNELS, _trace_counts, profile_chunk
+
+    def same_state(a, b):
+        return all(bool(torch.equal(x, y)) for x, y in zip(flatten(a)[0], flatten(b)[0]))
 
     n = GRAPH_PROFILED[1] - GRAPH_PROFILED[0]
     g_rows, g_state, g_engine, g_prof, counted, kf, _ = _stream_profiled(
         torch, cfg, frames, dev, True)
-    e_rows, e_state, _, e_prof, e_counted, _, windows = _stream_profiled(
+    _phase("4d: the graph run streamed")
+    e_rows, e_state, _, _, e_counted, _, windows = _stream_profiled(
         torch, cfg, frames, dev, False)
+    _phase("4d: the eager run streamed")
     same_rows = int(sum(bool(torch.equal(a, b)) for a, b in zip(g_rows, e_rows)))
-    g_leaves, _ = flatten(g_state)
-    e_leaves, _ = flatten(e_state)
-    same_state = all(torch.equal(a, b) for a, b in zip(g_leaves, e_leaves))
-    trace = _trace_counts(g_prof, n, counted)
-    eager = _trace_counts(e_prof, n, e_counted)
-    branch_syncs = [b["syncs"] for b in trace["keyframe_branches"]]
-    stretches = {name: {"replays": st.replays,
-                        "launches_per_replay": {w.__name__: c for w, c in st.launches.items()}}
-                 for name, st in g_engine.stretches.items()}
+    same_final = same_state(g_state, e_state)
+    trace = _trace_counts(g_prof, n, counted, kf)
+    programs = {p.name: {"replays": p.replays, "conds": p.conds}
+                for p in g_engine.programs.values()}
     out = {"frames": len(frames), "summaries_bitwise_equal": same_rows,
-           "final_state_bitwise_equal": same_state, "stretches": stretches,
-           "keyframes_profiled": kf, "branch_syncs": branch_syncs,
-           "branch_calls": trace["keyframe_branches"],
-           "graphs": {k: v for k, v in trace.items() if k != "keyframe_branches"},
-           "eager": {k: v for k, v in eager.items() if k != "keyframe_branches"},
-           "eager_branch_syncs": [b["syncs"] for b in eager["keyframe_branches"]],
+           "final_state_bitwise_equal": same_final, "programs": programs,
+           "keyframes_profiled": sum(kf),
+           "graphs": {k: v for k, v in trace.items() if k != "steps"},
+           "graph_steps": trace["steps"], "eager_launches": e_counted,
            "lm_masking": _lm_masking(torch, cfg, windows)}
-    _log("graphs vs eager, 20-frame world: " + json.dumps(out))
+    _phase("4d: the masked LM bodies timed")
+    _log("graph vs eager, 20-frame world streamed: " + json.dumps(out))
     _check(same_rows == len(frames), f"graph and eager summaries equal on {same_rows} frames")
-    _check(same_state, "graph and eager final states bitwise equal")
-    _check(len(branch_syncs) == kf > 0, f"{len(branch_syncs)} {BRANCH_RANGE} ranges, {kf} kf")
-    _check(max(branch_syncs) <= BRANCH_SYNCS_MAX, f"host syncs per keyframe branch {branch_syncs}")
+    _check(same_final, "graph and eager final states bitwise equal")
+    _check(len(programs) == 1, f"one step program for the streamed world: {programs}")
+    _check_streamed_steps("graph run, steps 8-19", trace["steps"])
     for kernel in PORT_KERNELS:
         _check(trace["kernel_launches"][kernel] == counted[kernel],
                f"{kernel}: {counted[kernel]} counted launches, "
                f"{trace['kernel_launches'][kernel]} in the trace")
-    _check(counted["stereo_bm_at_kernel"] == counted["greedy_nms_kernel"] == kf,
+    _check(counted["stereo_bm_at_kernel"] == counted["greedy_nms_kernel"] == sum(kf) > 0,
            f"one BM and one NMS launch per profiled keyframe: {counted}")
     _check(np.isfinite(g_rows.numpy()).all(), "finite summaries")
+
+    world = SyntheticStereoSequence(cam=cfg.camera, n_frames=N_REPLAY, shape=IMAGE_SHAPE,
+                                    n_points=4000, seed=0, speed=0.8, yaw_rate=0.003)
+    replay = list(world)
+    runs = {}
+    for graphs in (True, False):
+        engine = VOEngine(cfg, IMAGE_SHAPE, device=dev, graphs=graphs)
+        t0 = time.perf_counter()
+        runs[graphs] = run_vo(iter(replay), cfg, chunk_size=CHUNK, preload_device=True,
+                              engine=engine)
+        _log(f"129-frame world chunked by {CHUNK}, graphs={graphs}: "
+             f"{time.perf_counter() - t0:.2f} s, {runs[graphs].frames_per_sec:.3f} frames/s "
+             f"after the first chunk, chunk s {runs[graphs].chunk_seconds}")
+    g_sum, e_sum = run_summaries(runs[True]), run_summaries(runs[False])
+    chunked = {"frames": len(g_sum),
+               "summaries_bitwise_equal": int((g_sum == e_sum).all(axis=1).sum()),
+               "final_state_bitwise_equal": same_state(runs[True].state, runs[False].state),
+               "keyframes": int(g_sum[:, 7].sum())}
+    _phase("4d: the chunked runs")
+    chunk = profile_chunk(cfg, replay, CHUNK, dev)
+    _phase("4d: the profiled chunk")
+    chunked["profiled_chunk"] = chunk
+    out["chunked"] = chunked
+    _log("graph vs eager, 129-frame world chunked: " + json.dumps(chunked))
+    _check(chunked["summaries_bitwise_equal"] == N_REPLAY,
+           f"chunked graph and eager summaries equal on {chunked['summaries_bitwise_equal']}")
+    _check(chunked["final_state_bitwise_equal"], "chunked graph and eager final states equal")
+    _check(chunk["call"]["syncs"] <= CHUNK_SYNCS_MAX
+           and chunk["call"]["graph_launches"] == CHUNK,
+           f"replay_chunk: {chunk['call']} (syncs at most {CHUNK_SYNCS_MAX}, "
+           f"{CHUNK} graph launches)")
+    return out
+
+
+def _geometry_phase(torch, dev) -> dict:
+    """Phase 4c, the other shipped geometries: each of ``GEOMETRIES``'
+    12-frame billboard worlds streamed through its own step graph (captured
+    at its own shape, after phase 4's at 376x1241 in the same process) and
+    held to its stored JAX run: frame by frame (flags and counts equal, the
+    pose within ``GEOMETRY_TRAJ_TOL``), or, where the fixture holds the
+    reference's nudged reruns, by the divergence rule; the launches exact;
+    and the same world run eagerly, bitwise equal to the graph run."""
+    import numpy as np
+
+    from stereo_vo_tpu_torch.core.config import load_config
+    from stereo_vo_tpu_torch.data.synthetic import SyntheticStereoSequence
+    from stereo_vo_tpu_torch.engine.driver import run_vo
+    from stereo_vo_tpu_torch.engine.step import VOEngine
+    from stereo_vo_tpu_torch.eval.parity import divergence_hold, run_summaries
+
+    out = {}
+    for name, fixture in GEOMETRIES:
+        ref = np.load(os.path.join(os.path.dirname(os.path.abspath(__file__)), REF_DIR, fixture))
+        cfg = load_config(name)
+        shape = tuple(int(v) for v in ref["shape"])
+        _check(str(ref["config"]) == name, f"{fixture} describes {ref['config']}")
+        world = SyntheticStereoSequence(cam=cfg.camera, n_frames=int(ref["n_frames"]),
+                                        shape=shape, n_points=int(ref["n_points"]),
+                                        seed=int(ref["seed"]), speed=float(ref["speed"]),
+                                        yaw_rate=float(ref["yaw_rate"]))
+        frames = list(world)
+        _zero_launches()
+        run = run_vo(iter(frames), cfg, device=dev)
+        launches = _launches()
+        eager = run_vo(iter(frames), cfg, engine=VOEngine(cfg, shape, device=dev, graphs=False))
+        got = run_summaries(run)
+        what = f"{name} {shape[0]}x{shape[1]}"
+        same = int((got == run_summaries(eager)).all(axis=1).sum())
+        stats = run.frame_stats
+        kf = np.array([st["is_keyframe"] for st in stats])
+        _check_launches(what, launches, _lk_passes(cfg, stats[int(np.argmax(kf)) + 1:]),
+                        int(kf.sum()))
+        programs = {p.name: p.replays for p in run.engine.programs.values()}
+        if "spread_summaries" in ref:
+            report = divergence_hold(got, ref["summaries"], ref["spread_summaries"],
+                                     world.gt_poses, GEOMETRY_TRAJ_TOL, PHOTO_BA_RTOL,
+                                     SPREAD_FACTOR, ATE_RTOL)
+            _log(f"{what} vs {fixture} (divergence rule): "
+                 + json.dumps({k: v for k, v in report.items() if k != "failures"},
+                              default=float))
+            _check(not report["failures"], f"{what}: {report['failures']}")
+            out[name] = {"departure": report["frame"], "keyframes": report["keyframes"],
+                         "ate": report["ate"]}
+        else:
+            out[name] = _hold_to_reference(what, run, fixture, GEOMETRY_TRAJ_TOL)
+        out[name].update(programs=programs, graph_equals_eager=same)
+        _log(f"{what}: step programs {programs}, graph and eager summaries equal on {same} of "
+             f"{len(got)} frames")
+        _check(len(programs) == 1, f"{what}: one step program, {programs}")
+        _check(same == len(got), f"{what}: graph and eager equal on {same} of {len(got)}")
     return out
 
 
@@ -1274,17 +1526,76 @@ def _check_cli(out_dir: str, dev) -> None:
     _check(proc.returncode != 0 and "matplotlib" in proc.stderr, "--plot without matplotlib")
 
 
+def _in_child(fn: str) -> dict:
+    """``fn()`` of this module run in a child process on the card (the
+    kernels built by this one are reused from the build directory); its
+    last line of output, a JSON object."""
+    repo = os.path.dirname(os.path.abspath(__file__))
+    proc = subprocess.run([sys.executable, "-c", f"import chip_smoke; chip_smoke.{fn}()"],
+                          cwd=repo, capture_output=True, text=True, timeout=900)
+    lines = proc.stdout.strip().splitlines()
+    for line in lines[:-1]:
+        _log(line)
+    _check(proc.returncode == 0, f"{fn} in a child process: exit {proc.returncode}: "
+                                 f"{proc.stdout[-2000:]} {proc.stderr[-3000:]}")
+    return json.loads(lines[-1])
+
+
+def _child_setup():
+    """A child process's torch, settings, kitti00 config and device."""
+    import torch
+
+    from stereo_vo_tpu_torch.core.config import load_config
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    return torch, load_config("kitti00"), torch.device("cuda:0")
+
+
+def _main_world(cfg, n_frames=N_FRAMES):
+    """Phase 4's world (and phase 5's at ``N_REPLAY`` frames)."""
+    from stereo_vo_tpu_torch.data.synthetic import SyntheticStereoSequence
+
+    return SyntheticStereoSequence(cam=cfg.camera, n_frames=n_frames, shape=IMAGE_SHAPE,
+                                   n_points=4000, seed=0, speed=0.8, yaw_rate=0.003)
+
+
+def _keyframe_profile_child() -> None:
+    """Phase 4b's profile (``utils.profiling.profile_keyframes`` on phase
+    4's world), printed as one JSON line."""
+    from stereo_vo_tpu_torch.utils.profiling import profile_keyframes
+
+    torch, cfg, dev = _child_setup()
+    print(json.dumps(profile_keyframes(cfg, list(_main_world(cfg)), dev)), flush=True)
+
+
+def _graph_phase_child() -> None:
+    """Phase 4d (``_graph_phase`` on phase 4's world), its record printed
+    as one JSON line."""
+    torch, cfg, dev = _child_setup()
+    print(json.dumps(_graph_phase(torch, cfg, list(_main_world(cfg)), dev)), flush=True)
+
+
+def _profile_replay_child() -> None:
+    """Phase 6b's profile (``utils.profiling.profile_replay`` on the
+    129-frame world), printed as one JSON line."""
+    from stereo_vo_tpu_torch.utils.profiling import profile_replay
+
+    _, cfg, dev = _child_setup()
+    print(json.dumps(profile_replay(cfg, list(_main_world(cfg, N_REPLAY)), dev)), flush=True)
+
+
 def _offline_phases(cfg, dev) -> dict:
     """Phases 5-7; returns the kernel launches of phases 5 and 6."""
     import numpy as np
 
     from stereo_vo_tpu_torch.data.synthetic import SyntheticStereoSequence
     from stereo_vo_tpu_torch.engine.driver import run_vo
-    from stereo_vo_tpu_torch.utils.profiling import profile_replay
 
     phase_launches = {}
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
         # ---- 5. chunked replay with device preload
+        _phase("5")
         world = SyntheticStereoSequence(
             cam=cfg.camera, n_frames=N_REPLAY, shape=IMAGE_SHAPE, n_points=4000, seed=0,
             speed=0.8, yaw_rate=0.003,
@@ -1302,6 +1613,7 @@ def _offline_phases(cfg, dev) -> dict:
         _check_replay(cfg, run5, world.gt_poses, out5, wall_s, phase_launches["chunked_replay"])
 
         # ---- 6. resume from phase 5's checkpoint
+        _phase("6")
         ckpt = os.path.join(out5, "checkpoint.npz")
         _zero_launches()
         t0 = time.perf_counter()
@@ -1325,16 +1637,21 @@ def _offline_phases(cfg, dev) -> dict:
         _check(first_err < RESUME_TOL, f"first resumed pose differs by {first_err}")
 
         # ---- 6b. where a frame's time goes: frames 65-72 of the same world,
-        # streamed, under torch.profiler
-        prof = profile_replay(cfg, frames, dev)
+        # streamed, under torch.profiler, in a fresh process (a long process's
+        # profiler drops kernels of the graph's conditional bodies)
+        _phase("6b")
+        prof = _in_child("_profile_replay_child")
         _log("profile, frames 65-72 streamed: " + json.dumps(prof))
         _check(prof["kernel_launches"]["lk_level_kernel"] > 0,
                "the profiled frames ran the LK kernel")
+        _check_streamed_steps("frames 65-72", prof["steps"])
 
         # ---- 5b. the photo-textured long-horizon world, both seeds
+        _phase("5b")
         phase_launches.update(_photo_world_phase(cfg, dev))
 
         # ---- 7. the CLI on real imagery, without cv2, PIL and matplotlib
+        _phase("7")
         _check_cli(os.path.join(tmp, "cli"), dev)
     return phase_launches
 
@@ -1551,7 +1868,8 @@ def main() -> int:
     from stereo_vo_tpu_torch.engine.driver import run_vo
     from stereo_vo_tpu_torch.eval.ate import absolute_trajectory_error
 
-    # ---- 1. device
+    # ---- 1. device, and the conditional nodes the step graph is built of
+    _phase("1")
     smi = _nvidia_smi()
     _log(f"nvidia-smi: {smi}")
     _log(f"torch {torch.__version__} cuda {torch.version.cuda} "
@@ -1559,27 +1877,34 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda:0")
+    _conditional_probe(torch, dev)
     photo = load_sample_photo()
     _check(photo is not None and photo.shape == (600, 512), "the photo texture loads")
     _log(f"photo texture {os.path.basename(SAMPLE_PHOTO)}: {photo.shape} {photo.dtype}, "
          f"matplotlib importable: {importlib.util.find_spec('matplotlib') is not None}")
 
     # ---- 2. build
-    _build_all(cuda_build, ("extract_regions", "lk_level", "stereo_bm_at", "greedy_nms"))
+    _phase("2")
+    _build_all(cuda_build, ("extract_regions", "lk_level", "stereo_bm_at", "greedy_nms",
+                            "graph_cond"))
 
     # ---- 3. the region-extraction kernel against its plain version
+    _phase("3")
     max_err, timings = _extraction_check(torch, dev)
 
     # ---- 3b. the LK level-pass kernel against its plain version
+    _phase("3b")
     cfg = load_config("kitti00")
     world = SyntheticStereoSequence(
         cam=cfg.camera, n_frames=N_FRAMES, shape=IMAGE_SHAPE, n_points=4000, seed=0,
         speed=0.8, yaw_rate=0.003,
     )
     lk_record = _lk_level_check(torch, cfg, world, dev)
+    _lk_inactive_check(torch, cfg, world, dev)
     lk_record["max_abs_err"] = max(lk_record["max_abs_err"], _fast_motion_check(torch, dev))
 
     # ---- 3c. the sparse StereoBM kernel against its plain version
+    _phase("3c")
     from stereo_vo_tpu_torch.data.kitti import KittiSequence
 
     world_frames = list(world)
@@ -1589,12 +1914,14 @@ def main() -> int:
                                               ("real", real[0], real[1])], dev)
 
     # ---- 3d. the greedy-NMS kernel against its plain version
+    _phase("3d")
     photo_world = SyntheticStereoSequence(cam=cfg.camera, shape=IMAGE_SHAPE, seed=PHOTO_SEEDS[0],
                                           texture=photo, **PHOTO_WORLD)
     photo0 = photo_world.render(0)[0]
     nms_record = _nms_check(torch, cfg, world, photo0, dev)
 
     # ---- 4. the main path
+    _phase("4")
     _zero_launches()
     t0 = time.perf_counter()
     run = run_vo(world, cfg, device=dev)
@@ -1629,9 +1956,8 @@ def main() -> int:
     # ---- 4b. where a keyframe step's time goes: steps 8-11 of the same world,
     # and the Shi-Tomasi response on a photo frame (bitwise the CPU's; its
     # device time per frame against the former formula's)
-    from stereo_vo_tpu_torch.utils.profiling import profile_keyframes
-
-    prof = profile_keyframes(cfg, world_frames, dev)
+    _phase("4b")
+    prof = _in_child("_keyframe_profile_child")
     _log("profile, keyframe steps 8-11 streamed: " + json.dumps(prof))
     _response_check(torch, photo0, dev)
     bm_traced = prof["kernel_launches"]["stereo_bm_at_kernel"]
@@ -1641,20 +1967,23 @@ def main() -> int:
     _check(prof["kernel_launches"] == prof["wrapper_launches"],
            f"the wrappers' launches {prof['wrapper_launches']} are the trace's "
            f"{prof['kernel_launches']}")
-    _check(len(prof["keyframe_branches"]) == prof["keyframes_profiled"]
-           and all(b["syncs"] <= BRANCH_SYNCS_MAX for b in prof["keyframe_branches"]),
-           f"host syncs per keyframe branch: {prof['keyframe_branches']}")
+    _check_streamed_steps("keyframe steps 8-11", prof["steps"])
 
-    # ---- 4c. phase 4's run and the PnP draw held to the JAX package's
+    # ---- 4c. phase 4's run and the PnP draw held to the JAX package's, and
+    # a second geometry through its own step graph
+    _phase("4c")
     _hold_to_reference("main path", run, "kitti00_w20.npz", TRAJ_TOL_CARD)
     _sampler_check(torch, dev)
+    _geometry_phase(torch, dev)
 
-    # ---- 4d. the keyframe branch from CUDA graphs against the eager branch
-    _graph_phase(torch, cfg, world_frames, dev)
+    # ---- 4d. the step graph against the same step run eagerly
+    _phase("4d")
+    _in_child("_graph_phase_child")
 
     phase_launches.update(_offline_phases(cfg, dev))
 
     # ---- 8. single-device options
+    _phase("8")
     _dense_bm_check(torch, cfg, "real pair 0", real[0].left, real[0].right, dev)
     _dense_bm_check(torch, cfg, "synthetic frame 0", *world.render(0), dev)
     phase_launches["forward_only_tracking"] = _forward_tracking(torch, cfg, world, dev)
@@ -1662,6 +1991,7 @@ def main() -> int:
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
         _f64_island(torch, world, run, dev, tmp)
         # ---- 9. the landmark-sharded BA
+        _phase("9")
         _sharded_phases(torch, tmp)
 
     _log("launches per phase: " + json.dumps(phase_launches)

@@ -8,16 +8,20 @@ the repository (an earlier commit), in one call.
 
 Host speed drifts within a call, so the trees run in turns old, new, new,
 old, each in a child process that puts its tree first on ``sys.path``. A turn
-renders the 129-frame synthetic world of ``chip_smoke.py`` phase 5, runs this
-checkout's ``utils/profiling.py::profile_replay`` on that tree's package
-(frames 65-72 profiled, 49-80 timed), then the chunked replay
-(``run_vo(chunk_size=64, preload_device=True)``); then, on the 20-frame
-world of phase 4 (every frame a keyframe), ``profile_keyframes`` (steps 8-11
-profiled) and one ``stereo_bm_at`` call at the 748-slot keyframe input of
-``keyframe_bm_input`` (CUDA events, median of 20 samples of 10 calls), both
-through that tree's public functions. It prints one JSON line. Each tree
-builds its own kernels at first use. Exits non-zero without a CUDA device or
-when a turn fails.
+renders the 129-frame synthetic world of ``chip_smoke.py`` phase 5 and, on
+that tree's package, first the timed replays, before any profiler runs in
+the process: the chunked replay (``run_vo(chunk_size=64,
+preload_device=True)``) and the photo world's seed 11 chunked by 32; then
+this checkout's ``utils/profiling.py``: ``profile_replay`` (frames 65-72
+profiled, 49-80 timed: the calls, wall and device ms of each cruise and
+keyframe step), ``profile_chunk`` (frames 65-128 as one profiled
+``replay_chunk`` call: the syncs and launches inside it) and, on the
+20-frame world of phase 4 (every frame a keyframe), ``profile_keyframes``
+(steps 8-11 profiled); and one ``stereo_bm_at`` call at the 748-slot
+keyframe input of ``keyframe_bm_input`` (CUDA events, median of 20 samples
+of 10 calls), all through that tree's public functions. It prints one JSON
+line. Each tree builds its own kernels at first use. Exits non-zero without
+a CUDA device or when a turn fails.
 """
 
 from __future__ import annotations
@@ -58,8 +62,13 @@ def _turn(tree: str) -> None:
                                     n_points=4000, seed=0, speed=0.8, yaw_rate=0.003)
     frames = list(world)
     dev = torch.device("cuda:0")
-    row = profiling.profile_replay(cfg, frames, dev)
     run = run_vo(iter(frames), cfg, chunk_size=64, preload_device=True, device=dev)
+    photo = list(SyntheticStereoSequence(cam=cfg.camera, shape=(376, 1241), seed=11,
+                                         texture=load_sample_photo(), **smoke.PHOTO_WORLD))
+    photo_run = run_vo(iter(photo), cfg, chunk_size=smoke.PHOTO_CHUNK, preload_device=True,
+                       device=dev)
+    row = profiling.profile_replay(cfg, frames, dev)
+    chunk = profiling.profile_chunk(cfg, frames, 64, dev)
     kf_frames = list(SyntheticStereoSequence(cam=cfg.camera, n_frames=20, shape=(376, 1241),
                                              n_points=4000, seed=0, speed=0.8,
                                              yaw_rate=0.003))
@@ -71,14 +80,10 @@ def _turn(tree: str) -> None:
         block_size=fc.bm_block_size, prefilter_cap=fc.bm_prefilter_cap,
         texture_threshold=fc.bm_texture_threshold, uniqueness_ratio=fc.bm_uniqueness_ratio,
         compact_slots=fc.bm_compact_slots))
-    photo = list(SyntheticStereoSequence(cam=cfg.camera, shape=(376, 1241), seed=11,
-                                         texture=load_sample_photo(), **smoke.PHOTO_WORLD))
-    photo_run = run_vo(iter(photo), cfg, chunk_size=smoke.PHOTO_CHUNK, preload_device=True,
-                       device=dev)
     print(json.dumps({"package": os.path.dirname(stereo_vo_tpu_torch.__file__),
                       "chunked_frames_per_s": run.frames_per_sec,
                       "photo_s11_chunked_frames_per_s": photo_run.frames_per_sec, **row,
-                      "keyframe": keyframe,
+                      "chunk": chunk, "keyframe": keyframe,
                       "stereo_bm_at_748_ms": bm_ms, "stereo_bm_at_748_valid": int(valid.sum())}),
           flush=True)
 

@@ -8,6 +8,10 @@
 // stereo_vo_tpu_torch/ops/lk.py::lk_level_pass_ref.
 //
 // Contract, for every feature n (one block each):
+//  0. an inactive feature (active[n] false) is not solvable, so it makes no
+//     iteration: it writes its guess unchanged, solvable false, in_region of
+//     that guess, no update and, in the forward role, its centre (the
+//     template region's mean, summed as in 2), and reads nothing else;
 //  1. copy the template region (tpl_img at tpl_org[n]) and the iteration
 //     region (it_img at it_org[n]), region x region pixels each, from the
 //     level images edge-padded by m: padded[y][x] is img[clamp(y - m)][clamp(x
@@ -20,7 +24,7 @@
 //     then columns, each (1 - f) * v0 + f * v1, samples outside the region
 //     read 0), take its in-patch Scharr gradients cropped to win x win, the
 //     Gram terms, the min-eigenvalue and determinant gates and the inverse;
-//     solvable = eig_ok & det_ok & active[n];
+//     solvable = eig_ok & det_ok (& active[n], true past 0);
 //  4. run at most max_iters Gauss-Newton iterations in the reference's order
 //     (clamped position, window sample and di, bx and by, the step,
 //     oscillation halving for it > 0, the update, the eps stop, converged |=
@@ -61,7 +65,9 @@
 // Tensor cores have no use here: no product is wider than a dot of 441
 // terms. The loads are plain 4-byte loads: rows of a padded level start only
 // 4-byte aligned (row stride 5140 B at level 0), so 16-byte cp.async or TMA
-// would need a pitched image layout first.
+// would need a pitched image layout first. An inactive feature's block
+// reads at most its template region for the centre and exits, so the tracker
+// runs every slot of its capacity through one launch with no compaction.
 
 #include <cuda_runtime.h>
 
@@ -178,6 +184,46 @@ lk_level_kernel(const float* __restrict__ tpl_img, const float* __restrict__ it_
     const int iox = place(it_org[2 * n], wp, region) - m;
     const int ioy = place(it_org[2 * n + 1], hp, region) - m;
     const bool given = center_given != 0;
+    const float halff = static_cast<float>(half);
+    const float mf = static_cast<float>(m);
+    const float orgx = static_cast<float>(it_org[2 * n]);
+    const float orgy = static_cast<float>(it_org[2 * n + 1]);
+    const float lim = static_cast<float>(region - win - 1);
+
+    // ---- an inactive feature: not solvable, so no iteration and the guess
+    // unchanged; only the forward role's centre (the template region's
+    // mean, summed as below) needs its region
+    if (!active[n]) {
+        if (!given) {
+            double part = 0.0;
+            for (int i = tid; i < size; i += kThreads) {
+                const int r = i / region;
+                const int q = i - r * region;
+                part += static_cast<double>(
+                    tpl_img[static_cast<long long>(clampi(toy + r, 0, h - 1)) * w
+                            + clampi(tox + q, 0, w - 1)]);
+            }
+            part = warp_sum(part);
+            if (lane == 0) red_mean[warp] = part;
+            __syncthreads();
+            if (tid == 0) {
+                double total = red_mean[0];
+                for (int k = 1; k < kWarps; ++k) total += red_mean[k];
+                center[n] = static_cast<float>(total / static_cast<double>(size));
+            }
+        }
+        if (tid == 0) {
+            const float ux = guess_in[2 * n];
+            const float uy = guess_in[2 * n + 1];
+            guess_out[2 * n] = ux;
+            guess_out[2 * n + 1] = uy;
+            solvable_out[n] = false;
+            inside_out[n] = in_region(ux, uy, halff, mf, orgx, orgy, lim);
+            iters_out[n] = 0;
+        }
+        return;
+    }
+
     float c = given ? center[n] : 0.0f;
     double part = 0.0;
     for (int i = tid; i < size; i += kThreads) {
@@ -274,18 +320,13 @@ lk_level_kernel(const float* __restrict__ tpl_img, const float* __restrict__ it_
     const float min_eig = mul(sub(tr, sqrtf(disc)), 0.5f);
     const bool eig_ok = __fdiv_rn(min_eig, static_cast<float>(nwin)) >= min_eig_threshold;
     const bool det_ok = det > 1e-12f;
-    const bool solvable = eig_ok && det_ok && active[n];
+    const bool solvable = eig_ok && det_ok;
     const float safe_det = det_ok ? det : 1.0f;
     const float inv11 = det_ok ? __fdiv_rn(g22, safe_det) : 0.0f;
     const float inv12 = det_ok ? __fdiv_rn(-g12, safe_det) : 0.0f;
     const float inv22 = det_ok ? __fdiv_rn(g11, safe_det) : 0.0f;
 
     // ---- 4. the Gauss-Newton loop, until this feature converges
-    const float halff = static_cast<float>(half);
-    const float mf = static_cast<float>(m);
-    const float orgx = static_cast<float>(it_org[2 * n]);
-    const float orgy = static_cast<float>(it_org[2 * n + 1]);
-    const float lim = static_cast<float>(region - win - 1);
     float ux = guess_in[2 * n];
     float uy = guess_in[2 * n + 1];
     float psx = 0.0f, psy = 0.0f;

@@ -114,6 +114,8 @@ def run_vo(
     else:
         state = engine.init_state()
         start_idx = 0
+    # read from the state once; then set by the bootstrap that succeeds
+    initialized = bool(state.initialized)
 
     if out_dir:
         os.makedirs(out_dir, exist_ok=True)
@@ -217,15 +219,20 @@ def run_vo(
                 save_state(ckpt_path, state_after, fr[-1].index + 1)
 
     def stream_step(f):
-        """One streamed bootstrap/step call: returns the step output; the
-        frame's synchronized time goes to ``frame_seconds``."""
-        nonlocal state
-        fn = engine.step if bool(state.initialized) else engine.bootstrap
+        """One streamed bootstrap/step call: returns the step output and its
+        summary on the host, whose fetch is the frame's one wait for the
+        device; the frame's time to that fetch goes to ``frame_seconds``. A
+        bootstrap that reports a keyframe sets ``initialized``."""
+        nonlocal state, initialized
+        booting = not initialized
+        fn = engine.bootstrap if booting else engine.step
         t0 = time.perf_counter()
         state, out = fn(state, f.left, f.right)
-        _sync(dev)
+        pose, row = parse_summary(out.summary)
         frame_seconds.append(time.perf_counter() - t0)
-        return out
+        if booting and row["is_keyframe"]:
+            initialized = True
+        return out, pose, row
 
     def flush_chunk(allow_partial=False):
         nonlocal state, preload_misses, t_start, n_timed_from
@@ -260,8 +267,7 @@ def run_vo(
             # tail shorter than chunk_size: run it through the streaming step
             drain_inflight()
             for f in list(pending_chunk):
-                out = stream_step(f)
-                pose, row = parse_summary(out.summary)
+                _, pose, row = stream_step(f)
                 record(f.index, pose, row, f.gt_pose)
                 if row["is_keyframe"]:
                     dump_world_points(state, f.index)
@@ -273,18 +279,17 @@ def run_vo(
         if max_frames is not None and n_seen >= max_frames:
             break
         if frame.index >= start_idx:
-            initialized = bool(state.initialized)
             if chunk_size > 1 and initialized:
                 pending_chunk.append(frame)
                 if len(pending_chunk) >= chunk_size:
                     flush_chunk()
             else:
-                out = stream_step(frame)
-                if t_start is None and initialized:
+                was_initialized = initialized
+                out, pose, row = stream_step(frame)
+                if t_start is None and was_initialized:
                     # steady-state rate: from the end of the first step on
                     t_start = time.perf_counter()
                     n_timed_from = n_done + 1
-                pose, row = parse_summary(out.summary)
                 if (
                     save_track_images
                     and out_dir
@@ -316,6 +321,7 @@ def run_vo(
         # the timed region, as every earlier chunk was
         drain_inflight()
         elapsed = time.perf_counter() - t_start if t_start else 0.0
+    engine.flush_launches()
     n_timed = max(n_done - n_timed_from, 0) if t_start else 0
     fps = n_timed / elapsed if elapsed > 0 and n_timed > 0 else 0.0
 

@@ -5,33 +5,35 @@ enough detections; ``VOEngine.step`` runs one frame: the every-frame
 detection-count bail, fused forward/backward LK tracking, the
 parallax/lost keyframe gate, PnP on accepted frames, and on keyframes
 detection, dedup, sparse StereoBM, triangulation, the window update and the
-Schur-LM solve. Each of the reference's frame-level ``lax.cond`` branches
-is a Python ``if`` on a 0-d tensor here, read once, so only the taken branch
-runs.
+Schur-LM solve.
 
-The keyframe branch, from the accept decision to the new tracker state,
-makes the reference's decisions on the device as the reference does, and
-reads back only its conditions: PnP's ``ok`` and the live-landmark count
-that chooses the compacted or the full bundle adjustment. Between them it
-runs as three stretches, PnP, the keyframe work up to the solve, and the
-solve with the tracker's slot re-init; with ``graphs=True`` (the default on
-``cuda``) each is captured in a CUDA graph at its first use and replayed
-after (``engine/graphs.py``). ``graphs=False`` runs the same code eagerly.
-The branch runs inside the profiler range ``BRANCH_RANGE``.
+The step takes the reference's decisions in the reference's order, each a
+``lax.cond`` there and ``engine/graphs.py::cond`` here: the tracker's hinted
+or full pyramid, PnP on an accepted frame, the keyframe work when PnP holds,
+and the compacted or the full solve. Everything else is computed
+unconditionally and selected with ``torch.where``, as the reference's
+``sel`` does. With ``graphs=True`` (the default on ``cuda``) the whole step
+is one ``graphs.Program``: captured at its first use, then replayed as one
+CUDA graph whose decisions are conditional nodes, with no host read; the
+carried state lives in the program's buffers. ``graphs=False`` runs the same
+code eagerly, reading each predicate once on the host: the CPU's path, and
+the card's reference for the graph.
 
 The PnP hypotheses are the reference's own ``jax.random`` draw, recomputed
 bit for bit from the frame index (``frontend/prng.py``);
 ``step(..., pnp_indices=...)`` injects others instead.
 
-``VOEngine.replay_chunk`` is the offline-replay path: the state-independent
-preprocessing of a ``[K, H, W]`` chunk runs as one batched pass, then the
-chunk is a loop of ``step`` calls (the reference's ``lax.scan``).
+``VOEngine.replay_chunk`` is the offline-replay path (the reference's
+``lax.scan``): the state-independent preprocessing of a ``[K, H, W]`` chunk
+runs as one batched pass, then each frame is one step on its slice; on the
+card, one replay of the step program per frame, with no host read between
+frames, and the state and the stacked outputs handed out once at the end.
 """
 
 from __future__ import annotations
 
 import functools
-from typing import NamedTuple, Optional, Tuple
+from typing import Dict, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -50,7 +52,8 @@ from stereo_vo_tpu_torch.core import geometry as geo
 from stereo_vo_tpu_torch.core.config import PipelineConfig
 from stereo_vo_tpu_torch.core.consts import const
 from stereo_vo_tpu_torch.core.f32 import sqrt_f32
-from stereo_vo_tpu_torch.engine.graphs import Stretch
+from stereo_vo_tpu_torch.engine import graphs as graphs_module
+from stereo_vo_tpu_torch.engine.graphs import cond
 from stereo_vo_tpu_torch.frontend.detect import dedup_new_features, detect_features
 from stereo_vo_tpu_torch.frontend.pnp import PnPResult, pnp_ransac
 from stereo_vo_tpu_torch.frontend.track import NO_FLOW, TrackerState, track_step, tracker_init
@@ -94,15 +97,14 @@ class StepOutput(NamedTuple):
     track_from: torch.Tensor    # [F, 2]
     track_to: torch.Tensor      # [F, 2]
     track_valid: torch.Tensor   # [F]
+    # the pose and every per-frame scalar (SUMMARY_KEYS order) in one float32
+    # vector [19], so the host fetches one buffer per frame
+    summary: Optional[torch.Tensor] = None
 
-    @property
-    def summary(self) -> torch.Tensor:
-        """The pose and every per-frame scalar (``SUMMARY_KEYS`` order) in one
-        float32 vector, so the host fetches one buffer per frame."""
-        scalars = torch.stack(
-            [getattr(self, k).to(torch.float32) for k in SUMMARY_KEYS]
-        )
-        return torch.cat([self.pose_cw.to(torch.float32), scalars])
+
+def _with_summary(out: StepOutput) -> StepOutput:
+    scalars = torch.stack([getattr(out, k).to(torch.float32) for k in SUMMARY_KEYS])
+    return out._replace(summary=torch.cat([out.pose_cw.to(torch.float32), scalars]))
 
 
 def parse_summary(vec) -> Tuple[np.ndarray, dict]:
@@ -139,18 +141,22 @@ def _stereo_weight(fb: float, z: torch.Tensor, sigma_d: float) -> torch.Tensor:
     return (torch.full_like(z, fb) / (torch.clamp(z, min=1.0) ** 2 * sigma_d)) ** 2
 
 
-# the torch.profiler range around a step's keyframe branch
-BRANCH_RANGE = "VOEngine.keyframe_branch"
+# the torch.profiler range around the frames of a replayed chunk, from the
+# first frame's step to the last one's
+CHUNK_RANGE = "VOEngine.replay_chunk.frames"
 
 
 class VOEngine:
     """Bootstrap/step functions closed over one config, image shape and device
     (``cuda`` unless the caller passes ``device="cpu"``).
 
-    ``graphs``: replay the keyframe branch from CUDA graphs (module
-    docstring); ``None`` means ``True`` on ``cuda`` and ``False`` elsewhere,
-    and ``True`` off ``cuda`` raises. ``stretches`` holds the captured
-    stretches by name.
+    ``graphs``: run the step as one device program replayed from a CUDA
+    graph (module docstring); ``None`` means ``True`` on ``cuda`` and
+    ``False`` elsewhere, and ``True`` off ``cuda`` raises. ``programs``
+    holds the captured step programs, one per input signature (a streamed
+    frame, a chunk's frame, an injected PnP draw; each image shape its own).
+    A state or output that ``step`` hands out in graph mode is the
+    program's buffers: valid until the engine's next call.
 
     TF32 is switched off for both matmuls and cuDNN: the port matches the
     reference in float32."""
@@ -167,23 +173,30 @@ class VOEngine:
         if graphs and self.device.type != "cuda":
             raise ValueError(f"graphs=True needs a CUDA device, not {self.device}")
         self.graphs = bool(graphs)
-        self.stretches = {}
+        self.programs: Dict[tuple, graphs_module.Program] = {}
 
-    def _run(self, name: str, fn, *args):
-        """``fn(*args)``, through the stretch ``name`` when graphs are on."""
-        if not self.graphs:
-            return fn(*args)
-        stretch = self.stretches.get(name)
-        if stretch is None:
-            stretch = self.stretches[name] = Stretch(name, fn)
-        return stretch(*args)
+    def flush_launches(self) -> None:
+        """Add what the programs' replays launched (counted on the device)
+        to the hand kernels' wrappers' counts: one read back per program."""
+        for program in self.programs.values():
+            program.flush_launches()
 
     def _image(self, img) -> torch.Tensor:
         """A host or device image as float32 on the engine's device (uint8
         images cross to the device before the conversion)."""
+        return self._upload(img).to(torch.float32)
+
+    def _upload(self, img) -> torch.Tensor:
+        """A host or device image on the engine's device, in its own dtype. A
+        host image crosses to the card through pinned memory, without a
+        wait."""
         if not isinstance(img, torch.Tensor):
             img = torch.from_numpy(np.ascontiguousarray(img))
-        return img.to(self.device).to(torch.float32)
+        if img.device == self.device:
+            return img
+        if self.device.type == "cuda" and img.device.type == "cpu":
+            return img.pin_memory().to(self.device, non_blocking=True)
+        return img.to(self.device)
 
     def _scalar(self, value, dtype) -> torch.Tensor:
         """A constant 0-d tensor on the engine's device, made once; callers
@@ -293,17 +306,24 @@ class VOEngine:
             track_to=new_state.tracker.feat_xy,
             track_valid=new_state.tracker.feat_valid,
         )
-        return new_state, out
+        return new_state, _with_summary(out)
 
     # ------------------------------------------------------------------
     def _pnp(self, lm_pos, feat_ids, feat_xy, feat_valid, prev_pose, frame_idx,
              hyp_idx=None) -> PnPResult:
-        """The PnP stretch: PnP-RANSAC on the tracked features against the
-        window's landmarks, seeded by the device frame index."""
+        """PnP-RANSAC on the tracked features against the window's
+        landmarks, seeded by the device frame index."""
         cfg = self.config
         world_pts = lm_pos[feat_ids.to(torch.int64)]
         return pnp_ransac(world_pts, feat_xy, feat_valid, cfg.camera, prev_pose, frame_idx,
                           cfg.frontend, hyp_idx=hyp_idx)
+
+    def _skip_pnp(self, lm_pos, feat_ids, feat_xy, feat_valid, prev_pose, frame_idx,
+                  hyp_idx=None) -> PnPResult:
+        """The reference's ``_empty_pnp``: the warm start, no inlier, not ok."""
+        return PnPResult(pose=prev_pose, inliers=torch.zeros_like(feat_valid),
+                         num_inliers=self._scalar(0, torch.int64),
+                         ok=self._scalar(False, torch.bool))
 
     def _keyframe_prep(self, left_f, right_f, pose, inliers, feat_xy, feat_ids, feat_valid,
                        window: WindowState, resp):
@@ -360,8 +380,16 @@ class VOEngine:
             _pad_to(tri_valid, f_cap), _pad_to(w_new, f_cap),
             tracked_prior_pos=p3_trk, tracked_prior_w=w_trk,
         )
-        live = torch.sum(window.lm_valid.to(torch.int32))
+        live = torch.sum(window.lm_valid, dtype=torch.int32)
         return window, det_xy, inlier_valid, new_ids, new_ids_valid, live
+
+    def _skip_prep(self, left_f, right_f, pose, inliers, feat_xy, feat_ids, feat_valid,
+                   window: WindowState, resp):
+        """No keyframe: the window as it was, and nothing new."""
+        fc = self.config.frontend
+        no_det = torch.zeros((fc.max_detect, 2), dtype=torch.float32, device=feat_xy.device)
+        return (window, no_det, torch.zeros_like(feat_valid), torch.zeros_like(feat_ids),
+                torch.zeros_like(feat_valid), self._scalar(0, torch.int32))
 
     def _keyframe_solve(self, compact: bool, window: WindowState, det_xy, inlier_valid,
                         new_ids, new_ids_valid, feat_xy, feat_ids, flow_xy, flow_valid):
@@ -383,26 +411,28 @@ class VOEngine:
         order = valid_first(cat_valid)[:f_cap]
         slots = (cat_xy[order], cat_ids[order], cat_valid[order],
                  cat_flow[order], cat_flow_valid[order])
-        n_newlm = torch.sum(new_ids_valid.to(torch.int32))
+        n_newlm = torch.sum(new_ids_valid, dtype=torch.int32)
         return window, opt_pose, slots, (
             ba_stats.initial_cost, ba_stats.final_cost, ba_stats.iterations, n_newlm)
 
-    def _keyframe_work(self, left_f, right_f, pose, inliers, tracked: TrackerState,
-                       window: WindowState, resp):
-        """Keyframe branch after PnP: the keyframe work, the compaction
-        choice (one host read of the live-landmark count, when compaction
-        applies), then the chosen solve. Returns ``(window, opt_pose, slots,
-        (ba_c0, ba_c1, ba_iters, n_new_landmarks))``."""
-        bc = self.config.backend
-        window, det_xy, inlier_valid, new_ids, new_ids_valid, live = self._run(
-            "keyframe_prep", self._keyframe_prep, left_f, right_f, pose, inliers,
-            tracked.feat_xy, tracked.feat_ids, tracked.feat_valid, window, resp)
-        compact = (compaction_applies(bc, window.landmark_capacity)
-                   and int(live) <= bc.ba_compact_landmarks)
-        return self._run("solve_compact" if compact else "solve_full",
-                         functools.partial(self._keyframe_solve, compact),
-                         window, det_xy, inlier_valid, new_ids, new_ids_valid,
-                         tracked.feat_xy, tracked.feat_ids, tracked.flow_xy, tracked.flow_valid)
+    def _solve(self, compact: bool, window, det_xy, inlier_valid, new_ids, new_ids_valid,
+               tracked: TrackerState, pnp_pose, cur_pose, res_pose):
+        """The keyframe side of the reference's keyframe ``lax.cond``:
+        ``((window, pnp_pose, cur_pose, slot_xy, slot_ids, slot_valid,
+        slot_flow, slot_flow_valid), (ba_c0, ba_c1, ba_iters, n_newlm))``."""
+        window, opt_pose, slots, stats = self._keyframe_solve(
+            compact, window, det_xy, inlier_valid, new_ids, new_ids_valid,
+            tracked.feat_xy, tracked.feat_ids, tracked.flow_xy, tracked.flow_valid)
+        return (window, res_pose, opt_pose, *slots), stats
+
+    def _skip_solve(self, window, det_xy, inlier_valid, new_ids, new_ids_valid,
+                    tracked: TrackerState, pnp_pose, cur_pose, res_pose):
+        """Its other side: the small state as it was, no BA."""
+        zf = self._scalar(0.0, torch.float32)
+        zero = self._scalar(0, torch.int32)
+        return ((window, pnp_pose, cur_pose, tracked.feat_xy, tracked.feat_ids,
+                 tracked.feat_valid, tracked.flow_xy, tracked.flow_valid),
+                (zf, zf, zero, zero))
 
     # ------------------------------------------------------------------
     def _preprocess(self, lefts_f: torch.Tensor):
@@ -412,7 +442,17 @@ class VOEngine:
         resp = min_eig_response(lefts_f, fc.detect_block_size)
         n_peaks = count_quality_peaks(
             lefts_f, fc.quality_level, fc.detect_block_size, resp=resp)
-        return build_pyramid(lefts_f, fc.lk_max_level), n_peaks, resp
+        return tuple(build_pyramid(lefts_f, fc.lk_max_level)), n_peaks, resp
+
+    def _program(self, state, frame) -> graphs_module.Program:
+        """The step program for this state and frame's signature, made at
+        first use."""
+        key = (graphs_module.signature(state), graphs_module.signature(frame))
+        program = self.programs.get(key)
+        if program is None:
+            program = self.programs[key] = graphs_module.Program(
+                f"step{len(self.programs)}", self._step_impl)
+        return program
 
     def replay_chunk(self, state: VOState, lefts, rights
                      ) -> Tuple[VOState, torch.Tensor, torch.Tensor]:
@@ -421,17 +461,25 @@ class VOEngine:
 
         As in the reference, the pyramid, the Shi-Tomasi response and the
         peak count do not depend on the carried state, so they run once over
-        the whole chunk; each frame's step then takes its slice."""
+        the whole chunk; each frame's step then takes its slice. On the card
+        each frame is one replay of the step program, its slices copied into
+        the program's inputs, and nothing is read back; the state handed out
+        is a copy, so it outlives the engine's next call."""
         lefts_f = self._image(lefts)
         rights_f = self._image(rights)
         pyrs, n_peaks, resps = self._preprocess(lefts_f)
-        poses, summaries = [], []
-        for k in range(lefts_f.shape[0]):
-            precomp = (tuple(level[k] for level in pyrs), n_peaks[k], resps[k])
-            state, out = self.step(state, lefts_f[k], rights_f[k], precomp=precomp)
-            poses.append(out.pose_cw)
-            summaries.append(out.summary)
-        return state, torch.stack(poses), torch.stack(summaries)
+        k_frames = lefts_f.shape[0]
+        summaries = torch.empty((k_frames, 7 + len(SUMMARY_KEYS)), dtype=torch.float32,
+                                device=self.device)
+        with record_function(CHUNK_RANGE):
+            for k in range(k_frames):
+                precomp = (tuple(level[k] for level in pyrs), n_peaks[k], resps[k])
+                state, out = self.step(state, lefts_f[k], rights_f[k], precomp=precomp)
+                summaries[k].copy_(out.summary)
+        if self.graphs:
+            leaves, spec = graphs_module.flatten(state)
+            state = graphs_module.unflatten(spec, iter([t.clone() for t in leaves]))
+        return state, summaries[:, :7], summaries
 
     def step(self, state: VOState, left, right,
              pnp_indices: Optional[torch.Tensor] = None,
@@ -439,60 +487,79 @@ class VOEngine:
         """One frame. ``pnp_indices [n_hyp - 1, k]`` replaces the seeded PnP
         hypothesis draw when given; ``precomp = (pyramid, n_peaks, resp)``
         supplies the frame's preprocessing when ``replay_chunk`` batched it."""
+        frame = (self._upload(left), self._upload(right),
+                 None if precomp is None else (tuple(precomp[0]), precomp[1], precomp[2]),
+                 pnp_indices)
+        if not self.graphs:
+            return self._step_impl(state, frame)
+        return self._program(state, frame)(state, frame)
+
+    def _step_impl(self, state: VOState, frame) -> Tuple[VOState, StepOutput]:
+        """The step on device tensors, ``frame = (left, right, precomp,
+        pnp_indices)``: ``[H, W]`` images (uint8 or float32), ``None`` or the
+        frame's preprocessing, ``None`` or the injected draw."""
+        left, right, precomp, pnp_indices = frame
         cfg = self.config
-        left_f = self._image(left)
-        right_f = self._image(right)
+        fc = cfg.frontend
+        left_f = left.to(torch.float32)
+        right_f = right.to(torch.float32)
 
         # cheap every-frame bail: quality peak count
         pyr, n_peaks, resp = precomp if precomp is not None else self._preprocess(left_f)
         pyr = tuple(pyr)
-        n_det = torch.clamp(n_peaks, max=cfg.frontend.max_detect)
+        n_det = torch.clamp(n_peaks, max=fc.max_detect)
+        has_det = n_peaks >= fc.min_detected
 
         # track unconditionally; a skipped frame discards the update below
-        tracked, stats = track_step(state.tracker, pyr, cfg.frontend)
-
-        # the frame's two decisions, read back together: enough quality
-        # peaks, and the parallax / lost gate
-        gate = ((stats.av_parallax > cfg.frontend.parallax_thresh)
-                | (stats.percent_lost >= cfg.frontend.lost_thresh))
-        has_det, gate_ok = torch.stack([n_peaks >= cfg.frontend.min_detected, gate]).tolist()
-        accept = has_det and gate_ok
-        was_kf = False
-        if accept:
-            with record_function(BRANCH_RANGE):
-                res = self._run(
-                    "pnp" if pnp_indices is None else "pnp_given", self._pnp,
-                    state.window.lm_pos, tracked.feat_ids, tracked.feat_xy,
-                    tracked.feat_valid, state.pnp_pose, state.frame_idx, pnp_indices)
-                was_kf = bool(res.ok)
-                if was_kf:
-                    kf_out = self._keyframe_work(
-                        left_f, right_f, res.pose, res.inliers, tracked, state.window, resp)
-        else:
-            res = PnPResult(
-                pose=state.pnp_pose,
-                inliers=torch.zeros_like(tracked.feat_valid),
-                num_inliers=self._scalar(0, torch.int32),
-                ok=self._scalar(False, torch.bool),
-            )
-
         tr = state.tracker
-        zf = self._scalar(0.0, torch.float32)
-        zero = self._scalar(0, torch.int32)
-        if was_kf:
-            window, opt_pose, slots, (ba_c0, ba_c1, ba_iters, n_newlm) = kf_out
-            slot_xy, slot_ids, slot_valid, slot_flow, slot_flow_valid = slots
-            pnp_pose, cur_pose = res.pose, opt_pose
-            new_tracker = TrackerState(
-                pyramid=pyr, feat_xy=slot_xy, feat_ids=slot_ids, feat_valid=slot_valid,
-                init_xy=slot_xy, init_count=torch.sum(slot_valid, dtype=torch.int32),
-                flow_xy=slot_flow, flow_valid=slot_flow_valid, pred_err=tracked.pred_err,
-            )
-        else:
-            window, pnp_pose, cur_pose = state.window, state.pnp_pose, state.cur_pose
-            ba_c0, ba_c1, ba_iters, n_newlm = zf, zf, zero, zero
-            new_tracker = tracked if has_det else tr
+        tracked, stats = track_step(tr, pyr, fc)
+        accept = has_det & ((stats.av_parallax > fc.parallax_thresh)
+                            | (stats.percent_lost >= fc.lost_thresh))
 
+        # PnP runs only on accepted frames
+        res = cond(accept, self._pnp, self._skip_pnp,
+                   (state.window.lm_pos, tracked.feat_ids, tracked.feat_xy,
+                    tracked.feat_valid, state.pnp_pose, state.frame_idx, pnp_indices))
+        was_kf = accept & res.ok
+
+        # the keyframe branch over the small state: its work up to the solve,
+        # then the compacted or the full solve (the reference's choice on the
+        # live-landmark count), each taken only on a keyframe
+        prep = cond(was_kf, self._keyframe_prep, self._skip_prep,
+                    (left_f, right_f, res.pose, res.inliers, tracked.feat_xy,
+                     tracked.feat_ids, tracked.feat_valid, state.window, resp))
+        solve_args = (*prep[:5], tracked, state.pnp_pose, state.cur_pose, res.pose)
+        bc = cfg.backend
+        if compaction_applies(bc, state.window.landmark_capacity):
+            small = prep[5] <= bc.ba_compact_landmarks
+            kf_out = cond(was_kf & small, functools.partial(self._solve, True),
+                          self._skip_solve, solve_args)
+            kf_out = cond(was_kf & ~small, functools.partial(self._solve, False),
+                          lambda *_: kf_out, solve_args)
+        else:
+            kf_out = cond(was_kf, functools.partial(self._solve, False), self._skip_solve,
+                          solve_args)
+        (window, pnp_pose, cur_pose, slot_xy, slot_ids, slot_valid, slot_flow,
+         slot_flow_valid), (ba_c0, ba_c1, ba_iters, n_newlm) = kf_out
+
+        # reassemble the tracker state with elementwise selects
+        def sel(kf_val, track_val, old_val):
+            return torch.where(was_kf, kf_val, torch.where(has_det, track_val, old_val))
+
+        new_tracker = TrackerState(
+            pyramid=tuple(torch.where(has_det, new_l, old_l)
+                          for new_l, old_l in zip(pyr, tr.pyramid)),
+            feat_xy=sel(slot_xy, tracked.feat_xy, tr.feat_xy),
+            feat_ids=sel(slot_ids, tracked.feat_ids, tr.feat_ids),
+            feat_valid=sel(slot_valid, tracked.feat_valid, tr.feat_valid),
+            init_xy=sel(slot_xy, tr.init_xy, tr.init_xy),
+            init_count=sel(torch.sum(slot_valid, dtype=torch.int32), tr.init_count,
+                           tr.init_count),
+            # flow belongs to the frame pair, so a keyframe's re-init keeps it
+            flow_xy=sel(slot_flow, tracked.flow_xy, tr.flow_xy),
+            flow_valid=sel(slot_flow_valid, tracked.flow_valid, tr.flow_valid),
+            pred_err=torch.where(has_det, tracked.pred_err, tr.pred_err),
+        )
         new_state = VOState(
             tracker=new_tracker,
             window=window,
@@ -501,27 +568,27 @@ class VOEngine:
             frame_idx=state.frame_idx + 1,
             initialized=state.initialized,
         )
-        if was_kf:
-            track_valid = tracked.feat_valid & res.inliers
-        else:
-            track_valid = tracked.feat_valid if has_det else tr.feat_valid
+        zero = self._scalar(0, torch.int32)
+        zf = self._scalar(0.0, torch.float32)
         out = StepOutput(
             pose_cw=cur_pose,
             pose_wc=geo.pose_inverse(cur_pose),
-            is_keyframe=self._scalar(was_kf, torch.bool),
-            pnp_ok=res.ok if accept else self._scalar(True, torch.bool),
+            is_keyframe=was_kf,
+            pnp_ok=torch.where(accept, res.ok, self._scalar(True, torch.bool)),
             num_detected=n_det,
-            num_tracked=stats.num_tracked if has_det else zero,
-            num_inliers=res.num_inliers if accept else zero,
+            num_tracked=torch.where(has_det, stats.num_tracked, zero),
+            num_inliers=torch.where(accept, res.num_inliers, zero),
             num_new_landmarks=n_newlm,
-            av_parallax=stats.av_parallax if has_det else zf,
-            percent_lost=stats.percent_lost if has_det else zf,
+            av_parallax=torch.where(has_det, stats.av_parallax, zf),
+            percent_lost=torch.where(has_det, stats.percent_lost, zf),
             ba_initial_cost=ba_c0,
             ba_final_cost=ba_c1,
             ba_iterations=ba_iters,
-            hinted=stats.hinted if has_det else self._scalar(False, torch.bool),
+            hinted=has_det & stats.hinted,
             track_from=tr.init_xy,
-            track_to=tracked.feat_xy if has_det else tr.feat_xy,
-            track_valid=track_valid,
+            track_to=torch.where(has_det, tracked.feat_xy, tr.feat_xy),
+            track_valid=torch.where(was_kf, tracked.feat_valid & res.inliers,
+                                    torch.where(has_det, tracked.feat_valid,
+                                                tr.feat_valid)),
         )
-        return new_state, out
+        return new_state, _with_summary(out)

@@ -12,10 +12,16 @@ features is below ``cfg.lk_hint_pred_err_px``, LK starts each feature at
 levels. A step that keeps nothing, or loses more than 30% of the features
 that carried a flow estimate, resets the gate to the full pyramid.
 
-Live-slot compaction: when at most ``cfg.lk_compact_slots`` slots are valid,
-LK runs on exactly that many slots (valid first, stable order) and the
-results are written back by plain indexing; per-feature results do not depend
-on batch position.
+Both choices are the reference's ``lax.cond``s, taken by
+``engine/graphs.py::cond``: on the device inside the card's step graph, by
+one host read of the predicate elsewhere. The hinted choice is one; on the
+CPU the live-slot compaction is the other: when at most
+``cfg.lk_compact_slots`` slots are valid, the plain level pass runs on
+exactly that many slots (valid first, stable order) and the results are
+written back by plain indexing. Per-feature results do not depend on batch
+position, so the compacted and the full-width results are bitwise equal; on
+the card LK runs at full width with no compaction, since an inactive slot
+exits the level-pass kernel at once.
 """
 
 from __future__ import annotations
@@ -25,6 +31,7 @@ from typing import NamedTuple, Optional, Tuple
 import torch
 
 from stereo_vo_tpu_torch.core.config import FrontendConfig
+from stereo_vo_tpu_torch.core.consts import const
 from stereo_vo_tpu_torch.core.f32 import sqrt_f32
 from stereo_vo_tpu_torch.ops.lk import lk_track_fwdbwd, lk_track_pyramid
 
@@ -80,7 +87,7 @@ def tracker_init(
     if flow_valid is None:
         flow_valid = torch.zeros(xy.shape[0], dtype=torch.bool, device=xy.device)
     if pred_err is None:
-        pred_err = torch.tensor(NO_FLOW, dtype=torch.float32, device=xy.device)
+        pred_err = const(NO_FLOW, torch.float32, xy.device)
     return TrackerState(
         pyramid=tuple(pyramid),
         feat_xy=xy,
@@ -105,6 +112,9 @@ def track_step(
     ``flow_back=False`` tracks forward only (``lk_track_pyramid`` over the
     full pyramid at full width): no round-trip gate, no hint, no compaction,
     and the next step's hint gate reads ``NO_FLOW``."""
+    # engine/__init__ imports this module, so the engine's graphs come late
+    from stereo_vo_tpu_torch.engine import graphs
+
     prev_pyr = list(state.pyramid)
     new_pyr = list(new_pyramid)
     kwargs = dict(
@@ -114,21 +124,28 @@ def track_step(
     hint_thresh = cfg.lk_hint_pred_err_px
     hint_levels = cfg.lk_hint_levels
     use_hint_path = flow_back and hint_thresh > 0 and 0 < hint_levels < len(prev_pyr)
+    dev = state.feat_xy.device
     hint = None
-    hinted = False
+    hinted = const(False, torch.bool, dev)
     if use_hint_path:
         hint = _flow_hint(state.feat_xy, state.flow_xy, state.flow_valid)
-        hinted = bool(state.pred_err < hint_thresh)
+        hinted = state.pred_err < hint_thresh
 
-    def run_lk(pts, val, hint_vec):
-        if hinted:
-            return lk_track_fwdbwd(
-                prev_pyr[:hint_levels], new_pyr[:hint_levels], pts, val,
-                init_flow=hint_vec, bwd_from_original=True,
-                bwd_levels=cfg.lk_bwd_levels, **kwargs,
-            )
+    def full(pts, val, hint_vec):
         return lk_track_fwdbwd(prev_pyr, new_pyr, pts, val, bwd_levels=cfg.lk_bwd_levels,
                                **kwargs)
+
+    def short(pts, val, hint_vec):
+        return lk_track_fwdbwd(
+            prev_pyr[:hint_levels], new_pyr[:hint_levels], pts, val,
+            init_flow=hint_vec, bwd_from_original=True,
+            bwd_levels=cfg.lk_bwd_levels, **kwargs,
+        )
+
+    def run_lk(pts, val, hint_vec):
+        if not use_hint_path:
+            return full(pts, val, hint_vec)
+        return graphs.cond(hinted, short, full, (pts, val, hint_vec))
 
     f = state.feat_xy.shape[0]
     k = cfg.lk_compact_slots
@@ -136,20 +153,30 @@ def track_step(
         fwd_xy, ok = lk_track_pyramid(prev_pyr, new_pyr, state.feat_xy, state.feat_valid,
                                       **kwargs)
     else:
-        if 0 < k < f and int(state.feat_valid.sum()) <= k:
-            idx = torch.sort((~state.feat_valid).to(torch.uint8), stable=True).indices[:k]
-            f_xy, f_ok, b_xy, b_ok = run_lk(
-                state.feat_xy[idx], state.feat_valid[idx],
-                None if hint is None else hint[idx],
-            )
-            fwd_xy = state.feat_xy.clone()
-            fwd_xy[idx] = f_xy
-            bwd_xy = state.feat_xy.clone()
-            bwd_xy[idx] = b_xy
-            fwd_ok = torch.zeros_like(state.feat_valid)
-            fwd_ok[idx] = f_ok
-            bwd_ok = torch.zeros_like(state.feat_valid)
-            bwd_ok[idx] = b_ok
+        if 0 < k < f and dev.type == "cpu":
+            # the plain level pass iterates every slot it is given; the
+            # card's kernel lets an inactive slot exit at once
+            def compacted():
+                idx = torch.sort((~state.feat_valid).to(torch.uint8), stable=True).indices[:k]
+                f_xy, f_ok, b_xy, b_ok = run_lk(
+                    state.feat_xy[idx], state.feat_valid[idx],
+                    None if hint is None else hint[idx],
+                )
+                fwd = state.feat_xy.clone()
+                fwd[idx] = f_xy
+                bwd = state.feat_xy.clone()
+                bwd[idx] = b_xy
+                f_okf = torch.zeros_like(state.feat_valid)
+                f_okf[idx] = f_ok
+                b_okf = torch.zeros_like(state.feat_valid)
+                b_okf[idx] = b_ok
+                return fwd, f_okf, bwd, b_okf
+
+            def full_width():
+                return run_lk(state.feat_xy, state.feat_valid, hint)
+
+            live = torch.sum(state.feat_valid, dtype=torch.int32)
+            fwd_xy, fwd_ok, bwd_xy, bwd_ok = graphs.cond(live <= k, compacted, full_width)
         else:
             fwd_xy, fwd_ok, bwd_xy, bwd_ok = run_lk(state.feat_xy, state.feat_valid, hint)
         ok = fwd_ok & bwd_ok & (_norm2(state.feat_xy - bwd_xy) < cfg.fb_thresh)
@@ -170,18 +197,19 @@ def track_step(
         perr = _norm2(step_flow - hint)
         desc = torch.sort(torch.where(ok, perr, -float("inf")), descending=True).values
         k90 = (kept.to(torch.float32) * 0.1).to(torch.int64)
-        pred_err_now = desc[torch.clamp(k90, max=perr.shape[0] - 1)]
+        pred_err_now = torch.index_select(
+            desc, 0, torch.clamp(k90, max=perr.shape[0] - 1).reshape(1))[0]
         experienced = state.feat_valid & state.flow_valid
         n_prev = torch.sum(experienced.to(torch.int32))
         kept_exp = torch.sum((ok & experienced).to(torch.int32))
         step_loss = 1.0 - kept_exp.to(torch.float32) / torch.clamp(n_prev, min=1)
         pred_err = torch.where(
             (kept == 0) | (step_loss > 0.30),
-            torch.tensor(NO_FLOW, dtype=torch.float32, device=perr.device),
+            const(NO_FLOW, torch.float32, dev),
             pred_err_now,
         )
     else:
-        pred_err = torch.tensor(NO_FLOW, dtype=torch.float32, device=ok.device)
+        pred_err = const(NO_FLOW, torch.float32, dev)
 
     new_state = state._replace(
         pyramid=tuple(new_pyramid),
@@ -192,6 +220,5 @@ def track_step(
         pred_err=pred_err,
     )
     return new_state, TrackStats(
-        av_parallax=av_parallax, percent_lost=percent_lost, num_tracked=kept,
-        hinted=torch.tensor(hinted, device=ok.device),
+        av_parallax=av_parallax, percent_lost=percent_lost, num_tracked=kept, hinted=hinted,
     )

@@ -12,12 +12,15 @@ CPU, where there are no kernels, the self CPU time of each operator.
 
 ``profile_replay`` profiles a window of streamed steps on the card: kernel
 launches, CUDA graph launches, synchronizations and device time per frame,
-the device launches of the port's hand-written kernels, the runtime calls
-inside each keyframe branch, step and ``track_step`` latency.
+the device launches of the port's hand-written kernels, each step's runtime
+calls and device time, split into cruise and keyframe steps (the device's
+busy share of a cruise step among them), step and ``track_step`` latency.
 ``profile_keyframes`` does the same for keyframe steps (the 20-frame world,
 where every frame is a keyframe), with the wrappers' own launch counts
-beside the trace's, and ``keyframe_bm_input`` builds the 748-slot sparse-BM
-input of a keyframe step.
+beside the trace's; ``profile_chunk`` for one chunk of ``replay_chunk``
+(the runtime calls inside it, the syncs among them); and
+``keyframe_bm_input`` builds the 748-slot sparse-BM input of a keyframe
+step.
 """
 
 from __future__ import annotations
@@ -87,7 +90,7 @@ def summarize_trace(prof, top: int = 20) -> List[Tuple[float, str]]:
 
     events = prof.key_averages()
     kernels = [e for e in events if e.device_type == DeviceType.CUDA
-               and not getattr(e, "is_user_annotation", False) and e.key != BRANCH_RANGE]
+               and not getattr(e, "is_user_annotation", False) and e.key not in RANGES]
     if kernels:
         times = ((e.key, e.self_device_time_total) for e in kernels)
     else:
@@ -118,29 +121,56 @@ def runtime_calls(prof) -> Dict[str, int]:
     return calls
 
 
-def range_calls(prof, name: str) -> List[Dict[str, int]]:
+def range_calls(prof, name: str) -> List[Dict[str, float]]:
     """For each ``record_function(name)`` range in a profile, in order, the
-    runtime calls inside it: ``syncs``, ``launches`` and ``graph_launches``,
-    as ``runtime_calls`` counts them. Only host-side events count: the
-    profiler also draws each range on the device's timeline."""
+    runtime calls inside it (``syncs``, ``launches``, ``graph_launches`` and
+    ``copies``, host-side events only: the profiler also draws each range on
+    the device's timeline), its host wall ``wall_ms``, and the device time
+    of the kernels that started inside it, ``device_ms``."""
+    import bisect
+
     from torch.autograd import DeviceType
 
-    events = [e for e in prof.events() if e.device_type == DeviceType.CPU]
-    ranges = sorted((e.time_range.start, e.time_range.end) for e in events if e.name == name)
+    events = prof.events()
+    host = sorted((e.time_range.start, e.time_range.end, e.name) for e in events
+                  if e.device_type == DeviceType.CPU)
+    kernels = sorted((e.time_range.start, e.time_range.end) for e in events
+                     if e.device_type == DeviceType.CUDA and e.name not in RANGES
+                     and not getattr(e, "is_user_annotation", False))
+    host_starts = [h[0] for h in host]
+    kernel_starts = [k[0] for k in kernels]
     out = []
-    for start, end in ranges:
-        calls = {"syncs": 0, "launches": 0, "graph_launches": 0}
-        for e in events:
-            if not (start <= e.time_range.start and e.time_range.end <= end):
+    for start, end, _ in (h for h in host if h[2] == name):
+        calls = {"syncs": 0, "launches": 0, "graph_launches": 0, "copies": 0,
+                 "wall_ms": (end - start) / 1e3, "device_ms": 0.0}
+        lo, hi = bisect.bisect_left(host_starts, start), bisect.bisect_right(host_starts, end)
+        for _, e_end, e_name in host[lo:hi]:
+            if e_end > end:
                 continue
-            if "Synchronize" in e.name:
+            if "Synchronize" in e_name:
                 calls["syncs"] += 1
-            elif e.name in _KERNEL_LAUNCH_CALLS:
+            elif e_name in _KERNEL_LAUNCH_CALLS:
                 calls["launches"] += 1
-            elif e.name in _GRAPH_LAUNCH_CALLS:
+            elif e_name in _GRAPH_LAUNCH_CALLS:
                 calls["graph_launches"] += 1
+            elif e_name.startswith("cudaMemcpy"):
+                calls["copies"] += 1
+        lo, hi = bisect.bisect_left(kernel_starts, start), bisect.bisect_left(kernel_starts, end)
+        calls["device_ms"] = sum(k_end - k_start for k_start, k_end in kernels[lo:hi]) / 1e3
         out.append(calls)
     return out
+
+
+def _mean_calls(rows) -> Optional[Dict[str, float]]:
+    """The mean of ``range_calls`` rows, with the device's busy share (device
+    ms over wall ms) and their count; ``None`` for no row."""
+    if not rows:
+        return None
+    keys = ("syncs", "launches", "graph_launches", "copies", "wall_ms", "device_ms")
+    mean = {k: sum(r[k] for r in rows) / len(rows) for k in keys}
+    mean["busy_share"] = mean["device_ms"] / mean["wall_ms"] if mean["wall_ms"] > 0 else 0.0
+    mean["steps"] = len(rows)
+    return mean
 
 
 # PERF.md section 5 profiles the steps of frames PROFILED_FRAMES[0] ..
@@ -164,8 +194,13 @@ PORT_WRAPPERS = {"lk_level_kernel": ("ops.lk", "lk_level_pass"),
                  "stereo_bm_at_kernel": ("ops.stereo_bm", "stereo_bm_at"),
                  "extract_regions_kernel": ("ops.regions", "extract_regions"),
                  "greedy_nms_kernel": ("ops.shi_tomasi", "greedy_nms")}
-# the profiler range around the keyframe branch (engine/step.py BRANCH_RANGE)
-BRANCH_RANGE = "VOEngine.keyframe_branch"
+# the profiler ranges this module puts around each profiled step (the step
+# call and the summary fetch) and around each profiled replay_chunk call, and
+# the one replay_chunk puts around its frames (engine/step.py CHUNK_RANGE)
+STEP_RANGE = "profile.step"
+CHUNK_CALL_RANGE = "profile.replay_chunk"
+CHUNK_RANGE = "VOEngine.replay_chunk.frames"
+RANGES = (STEP_RANGE, CHUNK_CALL_RANGE, CHUNK_RANGE)
 
 
 def wrapper_launches() -> Dict[str, int]:
@@ -181,12 +216,13 @@ def wrapper_launches() -> Dict[str, int]:
     return out
 
 
-def _trace_counts(prof, n, counted=None) -> dict:
+def _trace_counts(prof, n, counted=None, keyframes=None) -> dict:
     """Launches, CUDA graph launches, syncs and device ms per step over ``n``
     profiled steps, the device launches of each of ``PORT_KERNELS`` in the
     trace and, given ``counted`` (the wrappers' launch counts over the same
-    steps), those beside them; and the runtime calls inside each keyframe
-    branch (``BRANCH_RANGE``)."""
+    steps), those beside them; and each step's own calls (``STEP_RANGE``),
+    with their means over the cruise and the keyframe steps given
+    ``keyframes`` (one flag per step)."""
     from torch.autograd import DeviceType
 
     calls = runtime_calls(prof)
@@ -199,11 +235,37 @@ def _trace_counts(prof, n, counted=None) -> dict:
         "device_ms_per_frame": device_ms / n,
         "kernel_launches": {name: sum(e.count for e in kernels if name in e.key)
                             for name in PORT_KERNELS},
-        "keyframe_branches": range_calls(prof, BRANCH_RANGE),
+        "steps": range_calls(prof, STEP_RANGE),
     }
+    if keyframes is not None and len(keyframes) == len(out["steps"]):
+        out["cruise_step"] = _mean_calls([r for r, kf in zip(out["steps"], keyframes)
+                                          if not kf])
+        out["keyframe_step"] = _mean_calls([r for r, kf in zip(out["steps"], keyframes) if kf])
     if counted is not None:
         out["wrapper_launches"] = counted
     return out
+
+
+def _step(engine, state, f):
+    """One streamed step and its summary fetch (the step's one wait for the
+    device), inside ``STEP_RANGE``: ``(state, summary vector on the host,
+    summary row)``."""
+    from torch.profiler import record_function
+
+    from stereo_vo_tpu_torch.engine.step import parse_summary
+
+    with record_function(STEP_RANGE):
+        state, out = engine.step(state, f.left, f.right)
+        vec = out.summary.cpu().numpy()
+    return state, vec, parse_summary(vec)[1]
+
+
+def _flush(engine) -> None:
+    """The engine's device-side launch counts into the wrappers' (an engine
+    of a tree that has none reads nothing)."""
+    flush = getattr(engine, "flush_launches", None)
+    if flush is not None:
+        flush()
 
 
 def profile_replay(cfg, frames, device) -> dict:
@@ -214,48 +276,57 @@ def profile_replay(cfg, frames, device) -> dict:
     Returns per-frame ``launches``, ``graph_launches``, ``syncs`` and
     ``device_ms`` over the profiled frames, the device launches there of each
     of ``PORT_KERNELS`` (read from the trace, not from the wrappers'
-    counters), the runtime calls inside each keyframe branch, and, over the
-    unprofiled steps of ``CRUISE_FRAMES``, the step wall p50 and the p50 of
-    one extra synchronized ``track_step`` per frame (its result discarded),
-    both in ms."""
+    counters), each profiled step's calls, wall and device ms with their
+    means over its cruise and keyframe steps, and, over the unprofiled steps
+    of ``CRUISE_FRAMES``, the step wall p50 (from the call to its summary on
+    the host) and, afterwards, the p50 of one synchronized ``track_step``
+    from each of those steps' tracker states (its result discarded), both in
+    ms."""
     import torch
 
-    from stereo_vo_tpu_torch.engine.step import VOEngine, parse_summary
+    from stereo_vo_tpu_torch.engine.step import VOEngine
     from stereo_vo_tpu_torch.frontend.track import track_step
     from stereo_vo_tpu_torch.ops.pyramid import build_pyramid
 
     engine = VOEngine(cfg, frames[0].left.shape, device=device)
     state, _ = engine.bootstrap(engine.init_state(), frames[0].left, frames[0].right)
-    step_ms, track_ms, hinted = [], [], []
+    step_ms, hinted, keyframes, trackers = [], [], [], []
 
-    def advance(state, f, timed):
+    def clone(tracker):
+        return type(tracker)(*[tuple(x.clone() for x in v) if isinstance(v, tuple) else v.clone()
+                               for v in tracker])
+
+    def advance(state, i, timed):
         if timed:
-            pyr = build_pyramid(engine._image(f.left), cfg.frontend.lk_max_level)
-            torch.cuda.synchronize(device)
-            t0 = time.perf_counter()
-            track_step(state.tracker, tuple(pyr), cfg.frontend)
-            torch.cuda.synchronize(device)
-            track_ms.append(1e3 * (time.perf_counter() - t0))
+            trackers.append((clone(state.tracker), i))
         t0 = time.perf_counter()
-        state, out = engine.step(state, f.left, f.right)
-        row = parse_summary(out.summary)[1]
-        torch.cuda.synchronize(device)
+        state, _, row = _step(engine, state, frames[i])
         if timed:
             step_ms.append(1e3 * (time.perf_counter() - t0))
             hinted.append(row["hinted"])
-        return state
+        return state, row
 
     first, end = PROFILED_FRAMES
     for i in range(1, first):
-        state = advance(state, frames[i], i >= CRUISE_FRAMES[0])
+        state, _ = advance(state, i, i >= CRUISE_FRAMES[0])
     with device_trace() as prof:
         for i in range(first, end):
-            state = advance(state, frames[i], False)
+            state, row = advance(state, i, False)
+            keyframes.append(row["is_keyframe"])
     for i in range(end, CRUISE_FRAMES[1]):
-        state = advance(state, frames[i], True)
+        state, _ = advance(state, i, True)
+    _flush(engine)
+    track_ms = []
+    for tracker, i in trackers:
+        pyr = build_pyramid(engine._image(frames[i].left), cfg.frontend.lk_max_level)
+        torch.cuda.synchronize(device)
+        t0 = time.perf_counter()
+        track_step(tracker, tuple(pyr), cfg.frontend)
+        torch.cuda.synchronize(device)
+        track_ms.append(1e3 * (time.perf_counter() - t0))
     return {
         "frames": [first, end],
-        **_trace_counts(prof, end - first),
+        **_trace_counts(prof, end - first, keyframes=keyframes),
         "step_ms_p50": statistics.median(step_ms),
         "track_step_ms_p50": statistics.median(track_ms),
         "hinted_share": sum(hinted) / len(hinted),
@@ -271,43 +342,86 @@ def profile_keyframes(cfg, frames, device) -> dict:
     ``KEYFRAME_TIMED_FROM`` on, then per profiled step ``launches``,
     ``graph_launches``, ``syncs`` and ``device_ms``, the device launches
     there of each of ``PORT_KERNELS`` from the trace and from the wrappers'
-    counts (``wrapper_launches``), the runtime calls inside each keyframe
-    branch, and how many of the profiled steps were keyframes."""
+    counts (``wrapper_launches``), each profiled step's calls, wall and
+    device ms with their means, and how many of the profiled steps were
+    keyframes."""
     import torch
 
-    from stereo_vo_tpu_torch.engine.step import VOEngine, parse_summary
+    from stereo_vo_tpu_torch.engine.step import VOEngine
 
     engine = VOEngine(cfg, frames[0].left.shape, device=device)
     state, _ = engine.bootstrap(engine.init_state(), frames[0].left, frames[0].right)
     torch.cuda.synchronize(device)
     first, end = KEYFRAME_PROFILED
-    step_ms, keyframes = [], 0
-
-    def advance(state, f, timed):
-        t0 = time.perf_counter()
-        state, out = engine.step(state, f.left, f.right)
-        row = parse_summary(out.summary)[1]
-        torch.cuda.synchronize(device)
-        if timed:
-            step_ms.append(1e3 * (time.perf_counter() - t0))
-        return state, row["is_keyframe"]
+    step_ms, keyframes = [], []
 
     for i in range(1, first):
-        state, _ = advance(state, frames[i], i >= KEYFRAME_TIMED_FROM)
+        t0 = time.perf_counter()
+        state, _, _ = _step(engine, state, frames[i])
+        if i >= KEYFRAME_TIMED_FROM:
+            step_ms.append(1e3 * (time.perf_counter() - t0))
+    _flush(engine)
     before = wrapper_launches()
     with device_trace() as prof:
         for i in range(first, end):
-            state, kf = advance(state, frames[i], False)
-            keyframes += int(kf)
+            state, _, row = _step(engine, state, frames[i])
+            keyframes.append(row["is_keyframe"])
+    _flush(engine)
     after = wrapper_launches()
     for i in range(end, len(frames)):
-        state, _ = advance(state, frames[i], True)
+        t0 = time.perf_counter()
+        state, _, _ = _step(engine, state, frames[i])
+        step_ms.append(1e3 * (time.perf_counter() - t0))
     counted = {k: after[k] - before[k] for k in PORT_KERNELS}
     return {
         "frames": [first, end],
         "step_ms_p50": statistics.median(step_ms),
-        "keyframes_profiled": keyframes,
-        **_trace_counts(prof, end - first, counted),
+        "keyframes_profiled": sum(keyframes),
+        **_trace_counts(prof, end - first, counted, keyframes),
+    }
+
+
+def profile_chunk(cfg, frames, chunk, device) -> dict:
+    """Bootstrap a fresh ``VOEngine`` on ``device`` (a CUDA device) on
+    ``frames[0]``, run ``replay_chunk`` over frames ``1 .. chunk`` (the
+    program's capture), then profile it over the next ``chunk`` frames, the
+    images already on the device, as the driver's preload holds them.
+
+    Returns the runtime calls inside that ``replay_chunk`` call (syncs
+    among them), its wall and device ms with the busy share, the same per
+    frame, each of ``PORT_KERNELS``' launches in the trace, and the
+    keyframes among its frames."""
+    import numpy as np
+    import torch
+
+    from stereo_vo_tpu_torch.engine.step import VOEngine
+    from torch.profiler import record_function
+
+    engine = VOEngine(cfg, frames[0].left.shape, device=device)
+    state, _ = engine.bootstrap(engine.init_state(), frames[0].left, frames[0].right)
+    lefts = torch.from_numpy(np.stack([f.left for f in frames[1:2 * chunk + 1]])).to(device)
+    rights = torch.from_numpy(np.stack([f.right for f in frames[1:2 * chunk + 1]])).to(device)
+    state, _, _ = engine.replay_chunk(state, lefts[:chunk], rights[:chunk])
+    torch.cuda.synchronize(device)
+    with device_trace() as prof:
+        with record_function(CHUNK_CALL_RANGE):
+            state, _, summaries = engine.replay_chunk(state, lefts[chunk:], rights[chunk:])
+        rows = summaries.cpu().numpy()
+    _flush(engine)
+    call = range_calls(prof, CHUNK_CALL_RANGE)[0]
+    frames_range = range_calls(prof, CHUNK_RANGE)
+    from torch.autograd import DeviceType
+
+    kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    return {
+        "frames": [chunk + 1, 2 * chunk + 1],
+        "keyframes": int(rows[:, 7].sum()),
+        "call": {**call, "busy_share": call["device_ms"] / call["wall_ms"]},
+        "between_frames": frames_range[0] if frames_range else None,
+        "per_frame": {k: call[k] / chunk for k in ("syncs", "launches", "graph_launches",
+                                                    "copies", "wall_ms", "device_ms")},
+        "kernel_launches": {name: sum(e.count for e in kernels if name in e.key)
+                            for name in PORT_KERNELS},
     }
 
 

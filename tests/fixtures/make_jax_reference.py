@@ -22,6 +22,13 @@ Runs ``stereo_vo_tpu`` on the CPU, in float32, and writes:
   by at most one ulp (``lm_pos`` and ``obs_uv``, each element up, down or
   not, drawn from the trial's seed), the size of the rounding differences
   between two float32 implementations;
+- ``d435i_w12.npz`` and ``kitti03_w12.npz``: ``run_vo`` streamed over 12
+  frames of the same billboard world at the ``d435i`` (480x640) and
+  ``kitti03`` (375x1242) geometries, each with its own intrinsics
+  (``tests/test_torch_trajectory.py``; ``chip_smoke.py`` phase 4c). The
+  ``d435i`` one also holds the reference's own spread, as the photo world's
+  do: with a 5 cm baseline its bundle adjustments are ill-conditioned, and
+  its one-ulp-nudged reruns part from it from frame 2 on;
 - ``pnp_draws.npz``: ``N_DRAW_MASKS`` seeded valid masks over 448 slots, their
   seeds, and the minimal samples ``stereo_vo_tpu/frontend/pnp.py::pnp_ransac``
   draws for each (``[M, 99, 6]``: ``pnp_iterations - 1`` hypotheses of
@@ -49,18 +56,22 @@ import numpy as np
 ROOT = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 OUT = os.path.join(os.path.dirname(os.path.abspath(__file__)), "jax_reference")
 
-CONFIG = "kitti00"
+CONFIG = "kitti00"               # a run's config, unless its world names another
 BILLBOARD = dict(shape=(376, 1241), n_points=4000, seed=0, speed=0.8, yaw_rate=0.003,
                  texture="none")
 PHOTO = dict(shape=(376, 1241), n_points=3000, speed=0.9, yaw_rate=0.004,
              texture="grace_hopper")
 RUNS = {                      # file stem: (world, frames, chunk size)
     "kitti00_w20": (BILLBOARD, 20, 0),
+    "d435i_w12": (dict(BILLBOARD, shape=(480, 640), config="d435i"), 12, 0),
+    "kitti03_w12": (dict(BILLBOARD, shape=(375, 1242), config="kitti03"), 12, 0),
     "kitti00_w129_c64": (BILLBOARD, 129, 64),
     "kitti00_photo_s11_w161_c32": (dict(PHOTO, seed=11), 161, 32),
     "kitti00_photo_s23_w161_c32": (dict(PHOTO, seed=23), 161, 32),
 }
-# nudged reruns of each photo-world run (the reference's own spread)
+# the runs that also store nudged reruns (the reference's own spread), and
+# how many
+SPREAD_RUNS = ("d435i_w12", "kitti00_photo_s11_w161_c32", "kitti00_photo_s23_w161_c32")
 SPREAD_TRIALS = 3
 N_DRAW_MASKS = 64
 DRAW_SLOTS = 448
@@ -105,9 +116,9 @@ def _summaries(run, SUMMARY_KEYS):
     return np.concatenate([np.asarray(run.poses, np.float32), rows], axis=1)
 
 
-def run_reference(world_args: dict, n_frames: int, chunk_size: int) -> dict:
+def run_reference(world_args: dict, n_frames: int, chunk_size: int, spread: bool) -> dict:
     """The JAX package's ``run_vo`` over ``world_args``' world of
-    ``n_frames``; for the photo world also ``SPREAD_TRIALS`` nudged reruns."""
+    ``n_frames``; with ``spread`` also ``SPREAD_TRIALS`` nudged reruns."""
     jax = _jax_cpu()
     import stereo_vo_tpu.engine.step as engine_step
     from stereo_vo_tpu.core.config import load_config
@@ -115,12 +126,13 @@ def run_reference(world_args: dict, n_frames: int, chunk_size: int) -> dict:
     from stereo_vo_tpu.engine import run_vo
     from stereo_vo_tpu.engine.step import SUMMARY_KEYS
 
-    cfg = load_config(CONFIG)
+    config = world_args.get("config", CONFIG)
+    cfg = load_config(config)
     texture = None
     if world_args["texture"] == "grace_hopper":
         texture = load_sample_photo()
         assert texture is not None, "matplotlib's sample photograph is missing"
-    kw = {k: v for k, v in world_args.items() if k != "texture"}
+    kw = {k: v for k, v in world_args.items() if k not in ("texture", "config")}
     world = SyntheticStereoSequence(cam=cfg.camera, n_frames=n_frames, texture=texture, **kw)
     frames = list(world)
     t0 = time.perf_counter()
@@ -131,25 +143,25 @@ def run_reference(world_args: dict, n_frames: int, chunk_size: int) -> dict:
         "poses": summaries[:, :7],
         "summaries": summaries,
         "summary_keys": np.array(SUMMARY_KEYS),
-        "config": np.array(CONFIG),
         "n_frames": np.int32(n_frames),
         "chunk_size": np.int32(chunk_size),
         **{k: np.asarray(v) for k, v in world_args.items()},
+        "config": np.array(config),
         "texture_shape": np.asarray(texture.shape if texture is not None else (0, 0), np.int32),
         "texture_sum": np.float64(texture.astype(np.float64).sum() if texture is not None else 0.0),
         "seconds": np.float64(seconds),
         "jax_version": np.array(jax.__version__),
     }
-    if texture is not None:
-        spread, original = [], engine_step.bundle_adjust
+    if spread:
+        reruns, original = [], engine_step.bundle_adjust
         for trial in range(1, SPREAD_TRIALS + 1):
             engine_step.bundle_adjust = _nudged_bundle_adjust(trial)
             try:
-                spread.append(_summaries(run_vo(iter(frames), cfg, chunk_size=chunk_size),
+                reruns.append(_summaries(run_vo(iter(frames), cfg, chunk_size=chunk_size),
                                          SUMMARY_KEYS))
             finally:
                 engine_step.bundle_adjust = original
-        out["spread_summaries"] = np.stack(spread)
+        out["spread_summaries"] = np.stack(reruns)
         out["spread_trials"] = np.arange(1, SPREAD_TRIALS + 1, dtype=np.int32)
     return out
 
@@ -199,7 +211,7 @@ def main(argv=None) -> int:
     for stem, (world_args, n_frames, chunk) in RUNS.items():
         if args.only and stem not in args.only:
             continue
-        ref = run_reference(world_args, n_frames, chunk)
+        ref = run_reference(world_args, n_frames, chunk, stem in SPREAD_RUNS)
         np.savez_compressed(os.path.join(args.out, stem + ".npz"), **ref)
         spread = ref.get("spread_summaries")
         print(f"{stem}: {n_frames} frames in {float(ref['seconds']):.1f} s, "

@@ -223,6 +223,39 @@ def _assert_kernel_matches_plain(got, want, args):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("label,lvl,slack", LEVELS)
+@pytest.mark.parametrize("role", ["forward", "backward"])
+def test_cuda_inactive_slots_equal_plain_version(frames, label, lvl, slack, role):
+    """Every other slot inactive, the tracker's full width: an inactive
+    slot exits the kernel at once and writes what the plain version writes
+    for it, bitwise (its forward-role centre, the one float the two sum in
+    another order, within ``KERNEL_TOL``, and bitwise the same slot's
+    centre from an all-active launch); an active slot's outputs do not
+    depend on its neighbours, bitwise."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    fwd, pts = _pass_inputs(frames, lvl, slack, 448, seed=lvl, device="cuda")
+    args = fwd if role == "forward" else _backward_inputs(fwd, pts, lk_level_pass_ref(*fwd),
+                                                          seed=20 + lvl)
+    full = list(args)
+    full[6] = torch.ones_like(args[6])
+    half = list(args)
+    half[6] = torch.arange(448, device="cuda") % 2 == 0
+    got = lk_level_pass(*half)
+    all_active = lk_level_pass(*full)
+    want = lk_level_pass_ref(*half)
+    torch.cuda.synchronize()
+    off, on = ~half[6], half[6]
+    for k in (0, 1, 2, 4):                          # guess, solvable, in_region, iterations
+        assert_equal(got[k][off].cpu(), want[k][off].cpu(), f"{label} {role} output {k}")
+        assert_equal(got[k][on].cpu(), all_active[k][on].cpu(), f"{label} {role} output {k}")
+    assert not bool(got[1][off].any()) and not bool(got[4][off].any())
+    assert_equal(got[3].cpu(), all_active[3].cpu(), f"{label} {role} centre")
+    c_err = (got[3][off] - want[3][off]).abs() / want[3][off].abs().clamp(min=1.0)
+    assert float(c_err.max()) <= KERNEL_TOL["center"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("label,lvl,slack", LEVELS)
 @pytest.mark.parametrize("n", [160, 448])
 def test_cuda_kernel_matches_plain_version(frames, label, lvl, slack, n):
     if not torch.cuda.is_available():

@@ -1,4 +1,4 @@
-"""The port's keyframe branch without host reads, and its CUDA graphs.
+"""The port's step without host reads but its decisions, and its CUDA graph.
 
 On the CPU:
 - a ``TorchDispatchMode`` counts the operators that read a device value back
@@ -8,7 +8,11 @@ On the CPU:
   each ``bundle_adjust`` solve past its compaction choice, ``pnp_ransac`` and
   ``add_keyframe`` read nothing at the defaults' full sizes (window 5, 448
   feature slots, 2048 landmarks, 100 PnP hypotheses); the engine's keyframe
-  stretches read nothing but the plain versions of the hand kernels;
+  work reads nothing but the plain versions of the hand kernels; the whole
+  ``VOEngine.step`` (the gate closed, a keyframe, a hinted frame) and
+  ``track_step`` read each ``cond``'s predicate once
+  (``engine/graphs.py``: six conds a step, two in the tracker, on the
+  CPU) and nothing else but the plain kernels;
 - the masked ``lm_loop`` against the JAX ``lm_loop`` on the same numpy
   problems, at each of its stops (the relative decrease under
   ``lm_rel_tol``, a flat reject, saturated damping, the iteration limit at
@@ -25,7 +29,7 @@ tests/test_torch_sync_free.py -m cuda --noconftest -q``): ``greedy_nms``
 (``csrc/greedy_nms.cu``) bitwise its plain version on frames 0-4 of the
 20-frame world, a photo frame, 1024 valid candidates in one conflict chain,
 none valid and candidates at the image corners, one launch per call; and
-the keyframe steps replayed from CUDA graphs bitwise the eager ones. JAX is
+the steps replayed from the step's CUDA graph bitwise the eager ones. JAX is
 imported inside the CPU tests only.
 """
 
@@ -223,7 +227,8 @@ def test_pnp_ransac_reads_nothing():
 
 
 def test_keyframe_stretches_read_nothing_but_the_plain_kernels(monkeypatch):
-    """The engine's three keyframe stretches on the CPU, on a keyframe of a
+    """The engine's keyframe work (PnP, the work up to the solve and each
+    solve, the bodies of the step's conds) on the CPU, on a keyframe of a
     240x320 world: the only reads are the plain versions' of the hand
     kernels, the greedy NMS's (one per round and one more) and sparse BM's
     compaction choice (the card's kernels make none)."""
@@ -279,6 +284,100 @@ def test_keyframe_stretches_read_nothing_but_the_plain_kernels(monkeypatch):
     assert bool(res.ok) and int(live) > 0
     for out in outs:
         assert int(out[3][2]) > 0                            # accepted LM steps
+
+
+def _plain_read_counter(monkeypatch, counter_box):
+    """Count the host reads that the plain versions of the hand kernels
+    make (the card's kernels make none), by name."""
+    from stereo_vo_tpu_torch.ops import lk, stereo_bm
+
+    plain_reads = {}
+
+    def counted(module, name):
+        plain = getattr(module, name)
+
+        def run(*args, **kwargs):
+            before = len(counter_box[0].reads)
+            out = plain(*args, **kwargs)
+            plain_reads[name] = plain_reads.get(name, 0) + len(counter_box[0].reads) - before
+            return out
+
+        monkeypatch.setattr(module, name, run)
+
+    counted(tst, "greedy_nms_ref")
+    counted(stereo_bm, "stereo_bm_at_ref")
+    counted(lk, "lk_level_pass_ref")
+    return plain_reads
+
+
+@pytest.fixture(scope="module")
+def small_world_states():
+    """The port on the 240x320 world of ``test_torch_engine.py``: its state
+    before frames 2 (the gate closed), 3 (a keyframe) and 4 (hinted)."""
+    from stereo_vo_tpu_torch.core.config import PipelineConfig
+    from stereo_vo_tpu_torch.data.synthetic import SyntheticStereoSequence
+    from stereo_vo_tpu_torch.engine.step import VOEngine
+
+    cfg = PipelineConfig(camera=SMALL_CAM,
+                         frontend=FrontendConfig(min_distance=12.0, parallax_thresh=10.0),
+                         backend=BackendConfig(feature_capacity=384, landmark_capacity=1024,
+                                               max_lm_iters=8))
+    world = SyntheticStereoSequence(cam=SMALL_CAM, n_frames=5, shape=(240, 320), n_points=500,
+                                    seed=11, speed=0.35, yaw_rate=0.004, point_depth=(5.0, 18.0))
+    engine = VOEngine(cfg, (240, 320), device="cpu")
+    frames = [world.render(i) for i in range(5)]
+    state, _ = engine.bootstrap(engine.init_state(), *frames[0])
+    states = {}
+    for i in range(1, 5):
+        states[i] = state
+        state, _ = engine.step(state, *frames[i])
+    return cfg, engine, frames, states
+
+
+# the step's conds on the CPU: the tracker's live-slot compaction and its
+# hinted choice, PnP, the keyframe work and the two solves
+STEP_CONDS = 6
+TRACK_CONDS = 2
+
+
+@pytest.mark.parametrize("frame", [2, 3, 4])
+def test_step_reads_one_predicate_per_cond(small_world_states, monkeypatch, frame):
+    """``VOEngine.step`` on the CPU reads each cond's predicate once and
+    nothing else but the plain versions of the hand kernels."""
+    from stereo_vo_tpu_torch.engine import graphs
+    from stereo_vo_tpu_torch.engine.step import parse_summary
+
+    _, engine, frames, states = small_world_states
+    box = [None]
+    plain_reads = _plain_read_counter(monkeypatch, box)
+    reads = graphs._ctx.reads
+    with HostReads() as counter:
+        box[0] = counter
+        _, out = engine.step(states[frame], *frames[frame])
+    conds = graphs._ctx.reads - reads
+    assert conds == STEP_CONDS
+    assert len(counter.reads) == sum(plain_reads.values()) + conds, counter.reads
+    row = parse_summary(out.summary)[1]
+    assert row["is_keyframe"] == (frame == 3) and row["hinted"] == (frame != 2)
+
+
+def test_track_step_reads_one_predicate_per_cond(small_world_states, monkeypatch):
+    from stereo_vo_tpu_torch.engine import graphs
+    from stereo_vo_tpu_torch.frontend.track import track_step
+
+    cfg, engine, frames, states = small_world_states
+    left = torch.from_numpy(frames[4][0]).to(torch.float32)
+    pyr = engine._preprocess(left)[0]
+    box = [None]
+    plain_reads = _plain_read_counter(monkeypatch, box)
+    reads = graphs._ctx.reads
+    with HostReads() as counter:
+        box[0] = counter
+        _, stats = track_step(states[4].tracker, pyr, cfg.frontend)
+    conds = graphs._ctx.reads - reads
+    assert conds == TRACK_CONDS and plain_reads["lk_level_pass_ref"] > 0
+    assert len(counter.reads) == plain_reads["lk_level_pass_ref"] + conds, counter.reads
+    assert bool(stats.hinted)
 
 
 # ---------------------------------------------------------------------------
@@ -503,8 +602,8 @@ def test_cuda_greedy_nms_raises_over_its_block():
 @pytest.mark.cuda
 def test_cuda_graph_replayed_keyframes_equal_eager():
     """Frames 0-7 of the 20-frame world (every step a keyframe) with the
-    keyframe branch replayed from CUDA graphs and run eagerly: every
-    summary, and the final state, bitwise equal."""
+    step replayed from its CUDA graph and run eagerly: every summary, and
+    the final state, bitwise equal."""
     from stereo_vo_tpu_torch.data.synthetic import SyntheticStereoSequence
     from stereo_vo_tpu_torch.engine.step import VOEngine
 
@@ -523,8 +622,9 @@ def test_cuda_graph_replayed_keyframes_equal_eager():
             rows.append(out.summary.cpu())
         runs[graphs] = (torch.stack(rows), state, engine)
     assert int(runs[True][0][:, 7].sum()) >= 6                  # keyframes
-    assert sorted(runs[True][2].stretches) == ["keyframe_prep", "pnp", "solve_compact",
-                                                 "solve_full"]
+    programs = list(runs[True][2].programs.values())
+    assert len(programs) == 1 and programs[0].replays == len(frames) - 2
+    assert programs[0].conds == 5                   # hinted, PnP, keyframe, two solves
     assert_equal(runs[True][0], runs[False][0], "summaries")
     from stereo_vo_tpu_torch.engine.graphs import flatten
 

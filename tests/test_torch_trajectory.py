@@ -13,6 +13,12 @@ to end and each frame of a run can be held to the reference's:
 - the BA costs are within relative ``BA_RTOL`` = 1e-3 (3.5e-5 measured);
 - the keyframe ATE is within ``ATE_TOL`` = 1e-4 m of the reference's.
 
+The other shipped geometries, 12 frames of the billboard world at
+``kitti03`` (375x1242) and ``d435i`` (480x640), are held to their stored JAX
+runs the same way; ``d435i``'s bundle adjustments are ill-conditioned (a
+5 cm baseline), its reference's one-ulp-nudged reruns part from it at frame
+2, so it is held by the divergence rule of ``test_torch_long_horizon.py``.
+
 The worlds: the 12-frame 240x320 world of ``test_torch_engine.py`` streamed,
 and the 13-frame world of ``test_torch_replay.py`` chunked by 4, both run by
 both packages here; and the 20-frame 376x1241 ``kitti00`` world of
@@ -37,7 +43,13 @@ from stereo_vo_tpu.engine import run_vo as jax_run_vo
 from stereo_vo_tpu_torch.core.config import load_config
 from stereo_vo_tpu_torch.data.synthetic import SyntheticStereoSequence as TSynthetic
 from stereo_vo_tpu_torch.eval.ate import absolute_trajectory_error
-from stereo_vo_tpu_torch.eval.parity import BA_KEYS, INT_KEYS, frame_differences, run_summaries
+from stereo_vo_tpu_torch.eval.parity import (
+    BA_KEYS,
+    INT_KEYS,
+    divergence_hold,
+    frame_differences,
+    run_summaries,
+)
 from stereo_vo_tpu_torch.frontend.pnp import sample_hypotheses
 
 from torch_port_helpers import cpu_run_vo, port_camera, port_config
@@ -132,6 +144,46 @@ def test_full_size_world_frame_by_frame(full_size):
     assert got.shape == want.shape == (20, 19)
     _hold_frame_by_frame(got, want, "kitti00, 20 frames, 376x1241")
     assert abs(_kf_ate(got, gt) - _kf_ate(want, gt)) <= ATE_TOL
+
+
+# the other shipped geometries: 12 frames of the billboard world streamed at
+# each camera's own image size and intrinsics (make_jax_reference.py)
+GEOMETRIES = {"kitti03": "kitti03_w12.npz", "d435i": "d435i_w12.npz"}
+# phase 5b's and tests/test_torch_long_horizon.py's divergence rule, for a
+# world whose reference is not fixed by float32 (its nudged reruns part)
+SPREAD_FACTOR = 2.0
+ATE_RTOL = 0.10
+
+
+@pytest.fixture(scope="module", params=sorted(GEOMETRIES))
+def geometry_run(request):
+    """The port's ``run_vo`` on the CPU over a stored geometry run's world:
+    ``(name, port summaries, reference file, gt)``."""
+    ref = _fixture(GEOMETRIES[request.param])
+    cfg = load_config(str(ref["config"]))
+    world = TSynthetic(cam=cfg.camera, n_frames=int(ref["n_frames"]),
+                       shape=tuple(int(s) for s in ref["shape"]),
+                       n_points=int(ref["n_points"]), seed=int(ref["seed"]),
+                       speed=float(ref["speed"]), yaw_rate=float(ref["yaw_rate"]))
+    run = cpu_run_vo(world, cfg, chunk_size=int(ref["chunk_size"]))
+    return request.param, run_summaries(run), ref, world.gt_poses
+
+
+def test_other_geometry_frame_by_frame(geometry_run):
+    """``kitti03`` (375x1242) holds frame by frame; ``d435i`` (480x640, a 5 cm
+    baseline) by the divergence rule: its reference's own one-ulp-nudged
+    reruns part from it at frame 2."""
+    name, got, ref, gt = geometry_run
+    want = ref["summaries"]
+    assert got.shape == want.shape == (12, 19) and want[:, 7].sum() >= 10
+    if "spread_summaries" not in ref:
+        _hold_frame_by_frame(got, want, name)
+        assert abs(_kf_ate(got, gt) - _kf_ate(want, gt)) <= ATE_TOL
+        return
+    report = divergence_hold(got, want, ref["spread_summaries"], gt, TRAJ_TOL, BA_RTOL,
+                             SPREAD_FACTOR, ATE_RTOL)
+    assert not report["failures"], report
+    assert report["reruns_first_departures"] and report["reruns_first_departures"][0] <= 3
 
 
 def test_fixture_draws_match_sample_hypotheses():
