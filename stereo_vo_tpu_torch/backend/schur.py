@@ -16,19 +16,21 @@
   λ is warm-started across solves from ``WindowState.ba_lam``.
 - The λ-free system is kept from the last accepted step.
 
-The LM loop is the reference's masked carry: a fixed trip of bodies, every
-decision a ``torch.where`` on the device, so it reads nothing back to the
-host and a CUDA graph can capture it (``lm_loop``). The choice between the
-compacted and the full solve is the one host read, and the caller can make
-it (``bundle_adjust(compact=...)``).
+The LM loop is the reference's ``while_loop`` over pairs of bodies, with its
+conditional rebuild (``lm_loop``): ``engine/graphs.py``'s ``while_loop`` and
+``cond``, which read their predicates on the host outside a capture and are
+a WHILE node and IF pairs in the card's step graph. Inside a body every
+other decision is a ``torch.where`` on the device. The choice between the
+compacted and the full solve is the caller's (``bundle_adjust(compact=...)``)
+or one host read.
 
 Landmark sharding (``parallel/sharded_ba.py``): given a process group, each
 rank holds a contiguous block of landmarks and ``lm_loop`` all-reduces (sum)
 at the reference's ``psum`` points: the cost, the pose blocks ``u_blocks``
 and ``g_p`` of each build, the ``[6W+1, 6W+1]`` Schur block of each damped
 reduction, and the landmark half of the predicted decrease. Every rank runs
-the same fixed trip on the same reduced numbers, so the ranks stay in
-lockstep. Without a group nothing changes.
+the same trips on the same reduced numbers, so the ranks stay in lockstep.
+Without a group nothing changes.
 """
 
 from __future__ import annotations
@@ -308,10 +310,25 @@ def _solve_from_system(sys: BASystem, poses, lm_pos, lam, cfg, group=None):
 
 
 def lm_trip(max_lm_iters: int) -> int:
-    """The loop bodies ``lm_loop`` runs: the reference's ``while_loop`` runs
-    pairs of bodies while fewer than ``max_lm_iters`` have updated, so at
-    most ``2 * ceil(max_lm_iters / 2)``."""
+    """The most loop bodies ``lm_loop`` runs: the reference's ``while_loop``
+    runs pairs of bodies while fewer than ``max_lm_iters`` have updated, so
+    at most ``2 * ceil(max_lm_iters / 2)``."""
     return 2 * ((max_lm_iters + 1) // 2)
+
+
+class _LMCarry(NamedTuple):
+    """The reference's ``while_loop`` carry."""
+
+    poses: torch.Tensor
+    lm_pos: torch.Tensor
+    sys: BASystem
+    lam: torch.Tensor
+    nu: torch.Tensor
+    cost: torch.Tensor
+    accepted: torch.Tensor   # [] int32 accepted steps
+    it: torch.Tensor         # [] int32 bodies that updated
+    rel: torch.Tensor
+    done: torch.Tensor       # [] bool
 
 
 def lm_loop(prob: LandmarkMajorProblem, cam, cfg, init_lam=None, group=None):
@@ -323,48 +340,61 @@ def lm_loop(prob: LandmarkMajorProblem, cam, cfg, init_lam=None, group=None):
     reductions are summed over the group (module docstring); the returned
     ``lm_pos`` is the local block.
 
-    The reference's masked carry, with no host read: a fixed trip of
-    ``lm_trip(cfg.max_lm_iters)`` bodies, each a no-op once ``done`` (``upd =
-    ~done`` freezes the carry), which is what the reference's ``while_loop``
-    over pairs of bodies computes, odd ``max_lm_iters`` included. The
-    λ-free system is rebuilt every body and kept only after an accepted
-    step: the carried one was built at the same iterate, so the result is
-    the reference's conditional rebuild."""
+    The reference's loop: ``engine/graphs.py::while_loop`` over pairs of
+    bodies while fewer than ``cfg.max_lm_iters`` bodies have updated and
+    the solve is not ``done`` (odd ``max_lm_iters`` included), the second
+    body of a pair a no-op once ``done`` (``upd = ~done`` freezes the
+    carry). Each body rebuilds the λ-free system only after an accepted
+    step (``graphs.cond``), and a rejected step re-solves the carried one at
+    the raised damping. On the CPU each predicate is read on the host; in
+    the card's step graph the loop is a WHILE node and the rebuild an IF
+    pair, with no host read. With a ``group`` (never captured) the system
+    is rebuilt every body and kept only after an accepted step, as the
+    reference's sharded solver does; the loop's predicate comes from
+    all-reduced values, so every rank takes the same trips."""
     return _lm_run(prob, cam, cfg, init_lam, group)[:7]
 
 
 def _lm_run(prob: LandmarkMajorProblem, cam, cfg, init_lam=None, group=None):
     """``lm_loop``'s results and, last, the bodies that updated (the
     reference's ``it``)."""
+    # engine/__init__ imports this module's users, so the engine's graphs
+    # come late
+    from stereo_vo_tpu_torch.engine import graphs
+
     poses, lm_pos = prob.poses, prob.lm_pos
     dtype, dev = poses.dtype, poses.device
     hd = cfg.huber_delta_px
     tol = cfg.lm_rel_tol
     cost0 = _lm_major_cost(poses, lm_pos, prob, cam, cfg.min_depth, hd, group)
-    sys = _build_system(poses, lm_pos, prob, cam, cfg, group)
+    sys0 = _build_system(poses, lm_pos, prob, cam, cfg, group)
 
     if init_lam is None:
         lam = torch.full((), cfg.init_damping, dtype=dtype, device=dev)
     else:
         lam = torch.clamp(torch.as_tensor(init_lam, dtype=dtype, device=dev),
                           cfg.min_damping, cfg.max_damping)
-    nu = torch.full((), 2.0, dtype=dtype, device=dev)
-    cost = cost0
-    accepted = torch.zeros((), dtype=torch.int32, device=dev)
-    rel = torch.zeros((), dtype=dtype, device=dev)
-    done = torch.zeros((), dtype=torch.bool, device=dev)
-    it = torch.zeros((), dtype=torch.int32, device=dev)
 
-    for _ in range(lm_trip(cfg.max_lm_iters)):
-        cand_p, cand_l, pred = _solve_from_system(sys, poses, lm_pos, lam, cfg, group)
+    def rebuild(p, l, _):
+        return _build_system(p, l, prob, cam, cfg)
+
+    def keep(_, __, sys):
+        return sys
+
+    def body(c: _LMCarry) -> _LMCarry:
+        cand_p, cand_l, pred = _solve_from_system(c.sys, c.poses, c.lm_pos, c.lam, cfg, group)
         cand_cost = _lm_major_cost(cand_p, cand_l, prob, cam, cfg.min_depth, hd, group)
-        upd = ~done
+        cost, lam, nu = c.cost, c.lam, c.nu
+        upd = ~c.done
         ok = (cand_cost < cost) & torch.isfinite(cand_cost) & upd
-        poses = torch.where(ok, cand_p, poses)
-        lm_pos = torch.where(ok, cand_l, lm_pos)
+        poses = torch.where(ok, cand_p, c.poses)
+        lm_pos = torch.where(ok, cand_l, c.lm_pos)
         cost_new = torch.where(ok, cand_cost, cost)
-        rebuilt = _build_system(poses, lm_pos, prob, cam, cfg, group)
-        sys = BASystem(*(torch.where(ok, new, old) for new, old in zip(rebuilt, sys)))
+        if group is None:
+            sys = graphs.cond(ok, rebuild, keep, (poses, lm_pos, c.sys))
+        else:
+            rebuilt = _build_system(poses, lm_pos, prob, cam, cfg, group)
+            sys = BASystem(*(torch.where(ok, new, old) for new, old in zip(rebuilt, c.sys)))
         rho = (cost - cand_cost) / torch.clamp(pred, min=1e-20)
         shrink = torch.clamp(1.0 - (2.0 * rho - 1.0) ** 3, min=1.0 / 3.0)
         new_lam = torch.where(
@@ -373,15 +403,26 @@ def _lm_run(prob: LandmarkMajorProblem, cam, cfg, init_lam=None, group=None):
                         cfg.max_damping),
             lam)
         nu = torch.where(upd, torch.where(ok, torch.full_like(nu, 2.0), nu * 2.0), nu)
-        rel = torch.where(upd, torch.abs(cost - cost_new) / torch.clamp(cost, min=1e-20), rel)
+        rel = torch.where(upd, torch.abs(cost - cost_new) / torch.clamp(cost, min=1e-20),
+                          c.rel)
         flat_reject = upd & ~ok & (
             torch.abs(cand_cost - cost) < tol * torch.clamp(cost, min=1e-20))
-        done = done | (ok & (rel < tol)) | flat_reject | (upd & ~ok & (lam >= cfg.max_damping))
-        lam = new_lam
-        cost = cost_new
-        accepted = accepted + ok.to(torch.int32)
-        it = it + upd.to(torch.int32)
-    return poses, lm_pos, cost0, cost, accepted, rel, lam, it
+        done = c.done | (ok & (rel < tol)) | flat_reject | (upd & ~ok & (lam >= cfg.max_damping))
+        return _LMCarry(poses, lm_pos, sys, new_lam, nu, cost_new,
+                        c.accepted + ok.to(torch.int32), c.it + upd.to(torch.int32), rel, done)
+
+    def lm_pair(c: _LMCarry) -> _LMCarry:
+        return body(body(c))
+
+    def running(c: _LMCarry) -> torch.Tensor:
+        return (c.it < cfg.max_lm_iters) & ~c.done
+
+    zero_i = torch.zeros((), dtype=torch.int32, device=dev)
+    c = graphs.while_loop(running, lm_pair, _LMCarry(
+        poses, lm_pos, sys0, lam, torch.full((), 2.0, dtype=dtype, device=dev), cost0, zero_i,
+        zero_i, torch.zeros((), dtype=dtype, device=dev),
+        torch.zeros((), dtype=torch.bool, device=dev)))
+    return c.poses, c.lm_pos, cost0, c.cost, c.accepted, c.rel, c.lam, c.it
 
 
 def _bundle_adjust_uncompacted(window: WindowState, cam, cfg, rel_tol):

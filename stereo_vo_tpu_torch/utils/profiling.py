@@ -20,7 +20,11 @@ where every frame is a keyframe), with the wrappers' own launch counts
 beside the trace's; ``profile_chunk`` for one chunk of ``replay_chunk``
 (the runtime calls inside it, the syncs among them); and
 ``keyframe_bm_input`` builds the 748-slot sparse-BM input of a keyframe
-step.
+step. ``recorded_solves`` keeps the windows the bundle adjustments of some
+steps start from, and ``profile_solves`` replays each of those solves as a
+graph program of its own (``solve_program``) and reads its device time
+(``device_ms``, the kernels' sum; ``elapsed_ms``, CUDA events around the
+replays) beside the LM loop's stop (``lm_stop``).
 """
 
 from __future__ import annotations
@@ -423,6 +427,116 @@ def profile_chunk(cfg, frames, chunk, device) -> dict:
         "kernel_launches": {name: sum(e.count for e in kernels if name in e.key)
                             for name in PORT_KERNELS},
     }
+
+
+def recorded_solves(cfg, frames, device, steps) -> list:
+    """Stream ``frames`` eagerly (``graphs=False``) through a fresh
+    ``VOEngine`` on ``device`` up to the last of ``steps`` and return, for
+    each keyframe step among ``steps``, ``(window, compact)``: the window
+    its bundle adjustment starts from and the compaction choice it took."""
+    from stereo_vo_tpu_torch.engine import step as step_module
+    from stereo_vo_tpu_torch.engine.step import VOEngine
+
+    engine = VOEngine(cfg, frames[0].left.shape, device=device, graphs=False)
+    state, _ = engine.bootstrap(engine.init_state(), frames[0].left, frames[0].right)
+    windows, solve = [], step_module.bundle_adjust
+
+    def recording(window, cam, bcfg, compact=None):
+        windows.append((window, compact))
+        return solve(window, cam, bcfg, compact=compact)
+
+    for i in range(1, max(steps) + 1):
+        step_module.bundle_adjust = recording if i in steps else solve
+        try:
+            state, _ = engine.step(state, frames[i].left, frames[i].right)
+        finally:
+            step_module.bundle_adjust = solve
+    return windows
+
+
+def solve_program(window, cam, bcfg, compact):
+    """``bundle_adjust(window, ..., compact=compact)`` as a graph program of
+    its own: returns a call that replays it (its first call runs it eagerly
+    and captures it)."""
+    from stereo_vo_tpu_torch.backend.schur import bundle_adjust
+    from stereo_vo_tpu_torch.engine.graphs import Program
+
+    program = Program("solve", lambda carry, inputs: (
+        (), bundle_adjust(inputs[0], cam, bcfg, compact=compact)))
+    return lambda: program((), (window,))
+
+
+def device_ms(fn, calls: int = 3) -> float:
+    """Device time per call of ``fn`` in ms: every kernel's self device time
+    ``torch.profiler`` records over ``calls`` calls, after one unprofiled
+    call."""
+    import torch
+    from torch.autograd import DeviceType
+
+    fn()
+    torch.cuda.synchronize()
+    with device_trace() as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    events = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    return sum(e.self_device_time_total for e in events) / calls / 1e3
+
+
+def elapsed_ms(fn, calls: int = 10) -> float:
+    """Time per call of ``fn`` on the device's clock in ms: CUDA events
+    around ``calls`` calls, after one untimed call (for a graph replay that
+    outlasts its launch, the replay's device time with its gaps)."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(calls):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / calls
+
+
+def lm_stop(window, cam, bcfg, compact) -> Tuple[int, int]:
+    """``(it, accepted)`` of the LM loop of ``bundle_adjust(window)``, run
+    eagerly: the bodies that updated and the accepted steps."""
+    from stereo_vo_tpu_torch.backend import schur
+
+    stops, run = [], schur._lm_run
+
+    def recording(*args, **kwargs):
+        out = run(*args, **kwargs)
+        stops.append((int(out[7]), int(out[4])))
+        return out
+
+    schur._lm_run = recording
+    try:
+        schur.bundle_adjust(window, cam, bcfg, compact=compact)
+    finally:
+        schur._lm_run = run
+    return stops[0]
+
+
+def profile_solves(cfg, frames, device, steps=range(8, 12)) -> dict:
+    """The bundle adjustments of keyframe ``steps`` of ``frames`` (the
+    20-frame world: every step a keyframe), each from its recorded window
+    (``recorded_solves``) replayed as its own graph program: per solve its
+    compaction choice, the LM loop's ``it`` and accepted steps, its device
+    ms (the kernels' sum) and its elapsed ms (CUDA events around the
+    replays); and their means."""
+    rows = []
+    for window, compact in recorded_solves(cfg, frames, device, steps):
+        it, accepted = lm_stop(window, cfg.camera, cfg.backend, compact)
+        call = solve_program(window, cfg.camera, cfg.backend, compact)
+        rows.append({"compact": compact, "it": it, "accepted": accepted,
+                     "device_ms": device_ms(call), "elapsed_ms": elapsed_ms(call)})
+    return {"steps": [min(steps), max(steps)], "solves": rows,
+            "device_ms_mean": statistics.mean(r["device_ms"] for r in rows),
+            "elapsed_ms_mean": statistics.mean(r["elapsed_ms"] for r in rows)}
 
 
 def keyframe_bm_input(cfg, frame0, frame1, device, live=True):

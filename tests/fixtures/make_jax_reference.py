@@ -22,13 +22,15 @@ Runs ``stereo_vo_tpu`` on the CPU, in float32, and writes:
   by at most one ulp (``lm_pos`` and ``obs_uv``, each element up, down or
   not, drawn from the trial's seed), the size of the rounding differences
   between two float32 implementations;
-- ``d435i_w12.npz`` and ``kitti03_w12.npz``: ``run_vo`` streamed over 12
-  frames of the same billboard world at the ``d435i`` (480x640) and
-  ``kitti03`` (375x1242) geometries, each with its own intrinsics
-  (``tests/test_torch_trajectory.py``; ``chip_smoke.py`` phase 4c). The
-  ``d435i`` one also holds the reference's own spread, as the photo world's
-  do: with a 5 cm baseline its bundle adjustments are ill-conditioned, and
-  its one-ulp-nudged reruns part from it from frame 2 on;
+- ``d435i_w12.npz``, ``kitti03_w12.npz``, ``kitti08_w12.npz`` and
+  ``multisense_w12.npz``: ``run_vo`` streamed over 12 frames of the same
+  billboard world at the ``d435i`` (480x640), ``kitti03`` (375x1242),
+  ``kitti08`` (370x1226) and ``multisense`` (801x801) geometries, each with
+  its own intrinsics (``tests/test_torch_trajectory.py``; ``chip_smoke.py``
+  phase 4c). The ``d435i`` and ``multisense`` ones also hold the
+  reference's own spread, as the photo world's do: with 5 and 7 cm
+  baselines their bundle adjustments are ill-conditioned, and their
+  one-ulp-nudged reruns part from them from frames 2-3 on;
 - ``pnp_draws.npz``: ``N_DRAW_MASKS`` seeded valid masks over 448 slots, their
   seeds, and the minimal samples ``stereo_vo_tpu/frontend/pnp.py::pnp_ransac``
   draws for each (``[M, 99, 6]``: ``pnp_iterations - 1`` hypotheses of
@@ -65,13 +67,16 @@ RUNS = {                      # file stem: (world, frames, chunk size)
     "kitti00_w20": (BILLBOARD, 20, 0),
     "d435i_w12": (dict(BILLBOARD, shape=(480, 640), config="d435i"), 12, 0),
     "kitti03_w12": (dict(BILLBOARD, shape=(375, 1242), config="kitti03"), 12, 0),
+    "kitti08_w12": (dict(BILLBOARD, shape=(370, 1226), config="kitti08"), 12, 0),
+    "multisense_w12": (dict(BILLBOARD, shape=(801, 801), config="multisense"), 12, 0),
     "kitti00_w129_c64": (BILLBOARD, 129, 64),
     "kitti00_photo_s11_w161_c32": (dict(PHOTO, seed=11), 161, 32),
     "kitti00_photo_s23_w161_c32": (dict(PHOTO, seed=23), 161, 32),
 }
 # the runs that also store nudged reruns (the reference's own spread), and
 # how many
-SPREAD_RUNS = ("d435i_w12", "kitti00_photo_s11_w161_c32", "kitti00_photo_s23_w161_c32")
+SPREAD_RUNS = ("d435i_w12", "multisense_w12", "kitti00_photo_s11_w161_c32",
+               "kitti00_photo_s23_w161_c32")
 SPREAD_TRIALS = 3
 N_DRAW_MASKS = 64
 DRAW_SLOTS = 448

@@ -4,23 +4,29 @@ On the CPU:
 - a ``TorchDispatchMode`` counts the operators that read a device value back
   to the host (``_local_scalar_dense``, behind ``int()``, ``bool()`` and
   ``.item()``; ``nonzero``; indexing and ``index_put`` with a boolean mask;
-  ``masked_select``; the error checks of ``torch.linalg``). ``lm_loop``,
-  each ``bundle_adjust`` solve past its compaction choice, ``pnp_ransac`` and
-  ``add_keyframe`` read nothing at the defaults' full sizes (window 5, 448
-  feature slots, 2048 landmarks, 100 PnP hypotheses); the engine's keyframe
-  work reads nothing but the plain versions of the hand kernels; the whole
-  ``VOEngine.step`` (the gate closed, a keyframe, a hinted frame) and
-  ``track_step`` read each ``cond``'s predicate once
-  (``engine/graphs.py``: six conds a step, two in the tracker, on the
-  CPU) and nothing else but the plain kernels;
-- the masked ``lm_loop`` against the JAX ``lm_loop`` on the same numpy
-  problems, at each of its stops (the relative decrease under
-  ``lm_rel_tol``, a flat reject, saturated damping, the iteration limit at
-  odd ``max_lm_iters`` 7 and 9): the same number of updating iterations
-  (the reference's ``it``, read from its ``while_loop``) and of accepted
-  steps, the same damping, costs within the backend tolerance of
-  ``tests/test_torch_backend.py`` (rtol 1e-5 initial, 1e-4 final; poses
-  1e-4, landmarks 1e-3 m);
+  ``masked_select``; the error checks of ``torch.linalg``). ``lm_loop``
+  and each ``bundle_adjust`` solve past its compaction choice read nothing
+  but the predicates of their loop and of its rebuilds (``engine/graphs.py``:
+  ``while_loop`` reads one per trip and one to stop, ``cond`` one, two
+  rebuilds a trip: ``3 * ceil(it / 2) + 1`` a solve), and ``pnp_ransac``
+  and ``add_keyframe`` read nothing, at the defaults' full sizes (window 5,
+  448 feature slots, 2048 landmarks, 100 PnP hypotheses); the engine's
+  keyframe work reads nothing but the plain versions of the hand kernels
+  and the solves' predicates; the whole ``VOEngine.step`` (the gate closed,
+  a keyframe, a hinted frame) and ``track_step`` read each ``cond``'s
+  predicate once (six conds a step, two in the tracker, on the CPU) and the
+  solve's loop and rebuild predicates, and nothing else but the plain
+  kernels;
+- the LM loop against the JAX ``lm_loop`` on the same numpy problems, at
+  each of its stops (the relative decrease under ``lm_rel_tol``, a flat
+  reject, saturated damping, the iteration limit at odd ``max_lm_iters`` 7
+  and 9): the same number of updating iterations (the reference's ``it``,
+  read from its ``while_loop``) and of accepted steps, the same damping,
+  costs within the backend tolerance of ``tests/test_torch_backend.py``
+  (rtol 1e-5 initial, 1e-4 final; poses 1e-4, landmarks 1e-3 m); bitwise
+  the masked fixed trip of ``lm_trip(max_lm_iters)`` bodies that rebuilds
+  every body (kept here as the oracle), at the same stops and on the full
+  windows; and one ``_build_system`` call per accepted step and one more;
 - ``detect_corners`` (its plain NMS) bitwise the jitted JAX function on a
   real frame and frame 0 of the photo and billboard worlds at 376x1241.
 
@@ -144,27 +150,63 @@ def large_window():
     return _full_window(1, 1500)
 
 
-def test_lm_loop_reads_nothing(large_window):
+def _loop_reads(its) -> int:
+    """The predicates the LM loops that updated ``its`` bodies read on the
+    CPU: one per trip of pairs and one to stop, and one per body's rebuild
+    choice."""
+    return sum(3 * ((int(it) + 1) // 2) + 1 for it in its)
+
+
+def _recorded_its(monkeypatch) -> list:
+    """Each LM loop's ``it`` (bodies that updated) as it returns, a tensor:
+    reading it here would be a host read."""
+    its, run = [], tschur._lm_run
+
+    def recording(*args, **kwargs):
+        out = run(*args, **kwargs)
+        its.append(out[7])
+        return out
+
+    monkeypatch.setattr(tschur, "_lm_run", recording)
+    return its
+
+
+def test_lm_loop_reads_nothing(large_window, monkeypatch):
+    """Nothing but the loop's and the rebuilds' predicates."""
+    from stereo_vo_tpu_torch.engine import graphs
+
     cfg = BackendConfig()
+    its = _recorded_its(monkeypatch)
+    reads = graphs._ctx.reads
     with HostReads() as counter:
         prob = tschur.window_to_landmark_major(large_window)
         out = tschur.lm_loop(prob, KITTI_CAM, cfg, init_lam=large_window.ba_lam)
-    assert counter.reads == []
+    preds = graphs._ctx.reads - reads
+    assert len(its) == 1 and preds == _loop_reads(its)
+    assert counter.reads == ["aten._local_scalar_dense.default"] * preds
     assert float(out[3]) < 0.5 * float(out[2]) and int(out[4]) > 0
 
 
 @pytest.mark.parametrize("compact", [True, False])
-def test_bundle_adjust_solve_reads_nothing(small_window, large_window, compact):
+def test_bundle_adjust_solve_reads_nothing(small_window, large_window, compact, monkeypatch):
+    """Nothing but the loop's and the rebuilds' predicates (and, without
+    ``compact``, the compaction choice)."""
+    from stereo_vo_tpu_torch.engine import graphs
+
     cfg = BackendConfig()
     window = small_window if compact else large_window
     assert (int(window.lm_valid.sum()) <= cfg.ba_compact_landmarks) == compact
+    its = _recorded_its(monkeypatch)
+    reads = graphs._ctx.reads
     with HostReads() as counter:
         out, stats = tschur.bundle_adjust(window, KITTI_CAM, cfg, compact=compact)
-    assert counter.reads == []
+    preds = graphs._ctx.reads - reads
+    assert preds == _loop_reads(its) and len(counter.reads) == preds
     # the solve the choice reads its way to is the same solve
+    reads = graphs._ctx.reads
     with HostReads() as counter:
         chosen, chosen_stats = tschur.bundle_adjust(window, KITTI_CAM, cfg)
-    assert len(counter.reads) == 1
+    assert graphs._ctx.reads - reads == preds and len(counter.reads) == 1 + preds
     assert_equal(chosen.poses, out.poses, "poses")
     assert_equal(chosen_stats.final_cost, stats.final_cost, "cost")
     assert float(stats.final_cost) < float(stats.initial_cost)
@@ -231,7 +273,10 @@ def test_keyframe_stretches_read_nothing_but_the_plain_kernels(monkeypatch):
     solve, the bodies of the step's conds) on the CPU, on a keyframe of a
     240x320 world: the only reads are the plain versions' of the hand
     kernels, the greedy NMS's (one per round and one more) and sparse BM's
-    compaction choice (the card's kernels make none)."""
+    compaction choice (the card's kernels make none), and the predicates of
+    each solve's LM loop and rebuilds (a WHILE node and IF pairs on the
+    card)."""
+    from stereo_vo_tpu_torch.engine import graphs
     from stereo_vo_tpu_torch.core.config import PipelineConfig
     from stereo_vo_tpu_torch.data.synthetic import SyntheticStereoSequence
     from stereo_vo_tpu_torch.engine.step import VOEngine
@@ -269,6 +314,8 @@ def test_keyframe_stretches_read_nothing_but_the_plain_kernels(monkeypatch):
 
     counted(tst, "greedy_nms_ref")
     counted(stereo_bm, "stereo_bm_at_ref")
+    its = _recorded_its(monkeypatch)
+    reads = graphs._ctx.reads
     with HostReads() as counter:
         res = engine._pnp(state.window.lm_pos, tracked.feat_ids, tracked.feat_xy,
                           tracked.feat_valid, state.pnp_pose, state.frame_idx)
@@ -279,8 +326,10 @@ def test_keyframe_stretches_read_nothing_but_the_plain_kernels(monkeypatch):
                                        new_valid, tracked.feat_xy, tracked.feat_ids,
                                        tracked.flow_xy, tracked.flow_valid)
                 for compact in (True, False)]
+    preds = graphs._ctx.reads - reads
     assert plain_reads["greedy_nms_ref"] >= 2 and plain_reads["stereo_bm_at_ref"] == 1
-    assert len(counter.reads) == sum(plain_reads.values()), counter.reads
+    assert len(its) == 2 and preds == _loop_reads(its)
+    assert len(counter.reads) == sum(plain_reads.values()) + preds, counter.reads
     assert bool(res.ok) and int(live) > 0
     for out in outs:
         assert int(out[3][2]) > 0                            # accepted LM steps
@@ -335,28 +384,32 @@ def small_world_states():
 
 
 # the step's conds on the CPU: the tracker's live-slot compaction and its
-# hinted choice, PnP, the keyframe work and the two solves
+# hinted choice, PnP, the keyframe work and the two solves (a keyframe's
+# solve adds its LM loop's and rebuilds' predicates, ``_loop_reads``)
 STEP_CONDS = 6
 TRACK_CONDS = 2
 
 
 @pytest.mark.parametrize("frame", [2, 3, 4])
 def test_step_reads_one_predicate_per_cond(small_world_states, monkeypatch, frame):
-    """``VOEngine.step`` on the CPU reads each cond's predicate once and
-    nothing else but the plain versions of the hand kernels."""
+    """``VOEngine.step`` on the CPU reads each cond's predicate once, and a
+    keyframe's solve its loop's and rebuilds' predicates, and nothing else
+    but the plain versions of the hand kernels."""
     from stereo_vo_tpu_torch.engine import graphs
     from stereo_vo_tpu_torch.engine.step import parse_summary
 
     _, engine, frames, states = small_world_states
     box = [None]
     plain_reads = _plain_read_counter(monkeypatch, box)
+    its = _recorded_its(monkeypatch)
     reads = graphs._ctx.reads
     with HostReads() as counter:
         box[0] = counter
         _, out = engine.step(states[frame], *frames[frame])
-    conds = graphs._ctx.reads - reads
-    assert conds == STEP_CONDS
-    assert len(counter.reads) == sum(plain_reads.values()) + conds, counter.reads
+    preds = graphs._ctx.reads - reads
+    assert len(its) == (frame == 3)
+    assert preds == STEP_CONDS + _loop_reads(its)
+    assert len(counter.reads) == sum(plain_reads.values()) + preds, counter.reads
     row = parse_summary(out.summary)[1]
     assert row["is_keyframe"] == (frame == 3) and row["hinted"] == (frame != 2)
 
@@ -381,7 +434,7 @@ def test_track_step_reads_one_predicate_per_cond(small_world_states, monkeypatch
 
 
 # ---------------------------------------------------------------------------
-# the masked LM loop against the reference's while_loop
+# the LM loop against the reference's while_loop
 
 def _lm_problem(seed, lm_jitter, pose_jitter, nan_obs=False, flat=False):
     """A 3-pose, 64-landmark problem (``parallel/dryrun.py::make_lm_problem``)
@@ -480,8 +533,130 @@ def test_masked_lm_loop_matches_reference(case, seed):
     assert_close(tl, jl, atol=1e-3, rtol=1e-4, what="landmarks")
 
 
+def _fixed_trip_lm_run(prob, cam, cfg, init_lam=None):
+    """The oracle: the masked fixed trip of ``lm_trip(max_lm_iters)``
+    bodies, every decision a ``torch.where``, the λ-free system rebuilt in
+    every body and kept only after an accepted step; ``_lm_run``'s
+    results."""
+    from stereo_vo_tpu_torch.backend.schur import (
+        BASystem,
+        _build_system,
+        _lm_major_cost,
+        _solve_from_system,
+    )
+
+    poses, lm_pos = prob.poses, prob.lm_pos
+    dtype, dev = poses.dtype, poses.device
+    hd = cfg.huber_delta_px
+    tol = cfg.lm_rel_tol
+    cost0 = _lm_major_cost(poses, lm_pos, prob, cam, cfg.min_depth, hd)
+    sys = _build_system(poses, lm_pos, prob, cam, cfg)
+    if init_lam is None:
+        lam = torch.full((), cfg.init_damping, dtype=dtype, device=dev)
+    else:
+        lam = torch.clamp(torch.as_tensor(init_lam, dtype=dtype, device=dev),
+                          cfg.min_damping, cfg.max_damping)
+    nu = torch.full((), 2.0, dtype=dtype, device=dev)
+    cost = cost0
+    accepted = torch.zeros((), dtype=torch.int32, device=dev)
+    rel = torch.zeros((), dtype=dtype, device=dev)
+    done = torch.zeros((), dtype=torch.bool, device=dev)
+    it = torch.zeros((), dtype=torch.int32, device=dev)
+    for _ in range(tschur.lm_trip(cfg.max_lm_iters)):
+        cand_p, cand_l, pred = _solve_from_system(sys, poses, lm_pos, lam, cfg)
+        cand_cost = _lm_major_cost(cand_p, cand_l, prob, cam, cfg.min_depth, hd)
+        upd = ~done
+        ok = (cand_cost < cost) & torch.isfinite(cand_cost) & upd
+        poses = torch.where(ok, cand_p, poses)
+        lm_pos = torch.where(ok, cand_l, lm_pos)
+        cost_new = torch.where(ok, cand_cost, cost)
+        rebuilt = _build_system(poses, lm_pos, prob, cam, cfg)
+        sys = BASystem(*(torch.where(ok, new, old) for new, old in zip(rebuilt, sys)))
+        rho = (cost - cand_cost) / torch.clamp(pred, min=1e-20)
+        shrink = torch.clamp(1.0 - (2.0 * rho - 1.0) ** 3, min=1.0 / 3.0)
+        new_lam = torch.where(
+            upd,
+            torch.clamp(torch.where(ok, lam * shrink, lam * nu), cfg.min_damping,
+                        cfg.max_damping),
+            lam)
+        nu = torch.where(upd, torch.where(ok, torch.full_like(nu, 2.0), nu * 2.0), nu)
+        rel = torch.where(upd, torch.abs(cost - cost_new) / torch.clamp(cost, min=1e-20), rel)
+        flat_reject = upd & ~ok & (
+            torch.abs(cand_cost - cost) < tol * torch.clamp(cost, min=1e-20))
+        done = done | (ok & (rel < tol)) | flat_reject | (upd & ~ok & (lam >= cfg.max_damping))
+        lam = new_lam
+        cost = cost_new
+        accepted = accepted + ok.to(torch.int32)
+        it = it + upd.to(torch.int32)
+    return poses, lm_pos, cost0, cost, accepted, rel, lam, it
+
+
+def _lm_case(case, seed):
+    """``(torch problem, BackendConfig)`` of an ``LM_CASES`` case."""
+    prob_kw, cfg_kw = LM_CASES[case]
+    cfg = BackendConfig(window_size=3, landmark_capacity=64, feature_capacity=64,
+                        max_features=64, **cfg_kw)
+    prob = _lm_problem(seed, **prob_kw)
+    return tschur.LandmarkMajorProblem(*to_torch(list(prob))), cfg
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+@pytest.mark.parametrize("case", list(LM_CASES))
+def test_lm_loop_is_the_fixed_trip_bitwise(case, seed):
+    """The while loop with its conditional rebuild gives, bit for bit, what
+    the masked fixed trip that rebuilds every body gives."""
+    prob, cfg = _lm_case(case, seed)
+    got = tschur._lm_run(prob, SMALL_CAM, cfg)
+    want = _fixed_trip_lm_run(prob, SMALL_CAM, cfg)
+    assert (int(got[7]), int(got[4])) == LM_STOPS[case]
+    for g, w, what in zip(got, want, ("poses", "lm_pos", "cost0", "cost", "accepted", "rel",
+                                      "lam", "it")):
+        assert_equal(g, w, what)
+
+
+@pytest.mark.parametrize("compact", [True, False])
+def test_lm_loop_is_the_fixed_trip_bitwise_on_full_windows(small_window, large_window,
+                                                           compact, monkeypatch):
+    """As above inside ``bundle_adjust`` on the defaults' full windows,
+    compacted and not, from the carried damping."""
+    cfg = BackendConfig()
+    window = small_window if compact else large_window
+    run, pairs = tschur._lm_run, []
+
+    def both(prob, cam, bcfg, init_lam=None, group=None):
+        got = run(prob, cam, bcfg, init_lam, group)
+        pairs.append((got, _fixed_trip_lm_run(prob, cam, bcfg, init_lam)))
+        return got
+
+    monkeypatch.setattr(tschur, "_lm_run", both)
+    tschur.bundle_adjust(window, KITTI_CAM, cfg, compact=compact)
+    (got, want), = pairs
+    assert int(got[4]) > 0
+    for g, w, what in zip(got, want, ("poses", "lm_pos", "cost0", "cost", "accepted", "rel",
+                                      "lam", "it")):
+        assert_equal(g, w, what)
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+@pytest.mark.parametrize("case", list(LM_CASES))
+def test_lm_loop_builds_once_per_accepted_step(case, seed, monkeypatch):
+    """The λ-free system is built once before the loop and once after each
+    accepted step, never after a rejected one or after ``done``."""
+    prob, cfg = _lm_case(case, seed)
+    build, calls = tschur._build_system, []
+
+    def counting(*args, **kwargs):
+        calls.append(1)
+        return build(*args, **kwargs)
+
+    monkeypatch.setattr(tschur, "_build_system", counting)
+    out = tschur._lm_run(prob, SMALL_CAM, cfg)
+    assert len(calls) == 1 + int(out[4])
+
+
 def test_lm_trip_is_the_reference_while_loop():
-    """Pairs of bodies while fewer than max_lm_iters updated."""
+    """Pairs of bodies while fewer than max_lm_iters updated: the most
+    bodies a solve runs."""
     assert [tschur.lm_trip(n) for n in range(1, 11)] == [2, 2, 4, 4, 6, 6, 8, 8, 10, 10]
 
 
@@ -624,7 +799,11 @@ def test_cuda_graph_replayed_keyframes_equal_eager():
     assert int(runs[True][0][:, 7].sum()) >= 6                  # keyframes
     programs = list(runs[True][2].programs.values())
     assert len(programs) == 1 and programs[0].replays == len(frames) - 2
-    assert programs[0].conds == 5                   # hinted, PnP, keyframe, two solves
+    # hinted, PnP, keyframe, two solves, and in each solve's LM loop (a
+    # WHILE node in the solve's body) the rebuilds of its two bodies
+    assert programs[0].conds == 9 and programs[0].whiles == 2
+    assert sorted(b for b in programs[0].bodies if b[0] == "while") == [
+        ("while", "lm_pair", 2)] * 2
     assert_equal(runs[True][0], runs[False][0], "summaries")
     from stereo_vo_tpu_torch.engine.graphs import flatten
 

@@ -14,10 +14,14 @@ to end and each frame of a run can be held to the reference's:
 - the keyframe ATE is within ``ATE_TOL`` = 1e-4 m of the reference's.
 
 The other shipped geometries, 12 frames of the billboard world at
-``kitti03`` (375x1242) and ``d435i`` (480x640), are held to their stored JAX
-runs the same way; ``d435i``'s bundle adjustments are ill-conditioned (a
-5 cm baseline), its reference's one-ulp-nudged reruns part from it at frame
-2, so it is held by the divergence rule of ``test_torch_long_horizon.py``.
+``kitti03`` (375x1242), ``kitti08`` (370x1226), ``d435i`` (480x640) and
+``multisense`` (801x801), are held to their stored JAX runs the same way;
+the bundle adjustments of ``d435i`` and ``multisense`` are ill-conditioned
+(5 and 7 cm baselines), their references' one-ulp-nudged reruns part from
+them at frames 2-3, so they are held by the divergence rule of
+``test_torch_long_horizon.py``. The 20-frame world is also run at torch's
+default thread count, where the bundle adjustment's Schur Gram sums in
+another order, and held by the same rule.
 
 The worlds: the 12-frame 240x320 world of ``test_torch_engine.py`` streamed,
 and the 13-frame world of ``test_torch_replay.py`` chunked by 4, both run by
@@ -52,7 +56,7 @@ from stereo_vo_tpu_torch.eval.parity import (
 )
 from stereo_vo_tpu_torch.frontend.pnp import sample_hypotheses
 
-from torch_port_helpers import cpu_run_vo, port_camera, port_config
+from torch_port_helpers import DEFAULT_THREADS, cpu_run_vo, port_camera, port_config
 
 TRAJ_TOL = 1e-4
 BA_RTOL = 1e-3
@@ -126,15 +130,21 @@ def _fixture(name):
     return np.load(os.path.join(FIXTURES, name))
 
 
-@pytest.fixture(scope="module")
-def full_size():
-    """The port's ``run_vo`` on the CPU over the stored reference's world."""
-    ref = _fixture("kitti00_w20.npz")
+def _stored_world(ref):
+    """``(config, world)`` of a stored reference run."""
     cfg = load_config(str(ref["config"]))
     world = TSynthetic(cam=cfg.camera, n_frames=int(ref["n_frames"]),
                        shape=tuple(int(s) for s in ref["shape"]),
                        n_points=int(ref["n_points"]), seed=int(ref["seed"]),
                        speed=float(ref["speed"]), yaw_rate=float(ref["yaw_rate"]))
+    return cfg, world
+
+
+@pytest.fixture(scope="module")
+def full_size():
+    """The port's ``run_vo`` on the CPU over the stored reference's world."""
+    ref = _fixture("kitti00_w20.npz")
+    cfg, world = _stored_world(ref)
     run = cpu_run_vo(world, cfg, chunk_size=int(ref["chunk_size"]))
     return run_summaries(run), ref["summaries"], world.gt_poses
 
@@ -146,9 +156,31 @@ def test_full_size_world_frame_by_frame(full_size):
     assert abs(_kf_ate(got, gt) - _kf_ate(want, gt)) <= ATE_TOL
 
 
+def test_full_size_world_at_default_threads():
+    """The same world at torch's default thread count (the tier-1 workers
+    run one thread each), held by the same rule. On this path one reduction
+    changes its float32 result with the thread count: the bundle
+    adjustment's Schur Gram (``backend/schur.py::_damp_reduce``'s einsum
+    over the landmarks, a GEMM whose contraction the BLAS splits among its
+    threads); every other stage is bitwise the same at 1 and 8 threads
+    (``tests/fixtures/thread_stages.py``)."""
+    ref = _fixture("kitti00_w20.npz")
+    cfg, world = _stored_world(ref)
+    threads = torch.get_num_threads()
+    torch.set_num_threads(DEFAULT_THREADS)
+    try:
+        run = cpu_run_vo(world, cfg, chunk_size=int(ref["chunk_size"]))
+    finally:
+        torch.set_num_threads(threads)
+    got, want = run_summaries(run), ref["summaries"]
+    _hold_frame_by_frame(got, want, f"kitti00, 20 frames, {DEFAULT_THREADS} threads")
+    assert abs(_kf_ate(got, world.gt_poses) - _kf_ate(want, world.gt_poses)) <= ATE_TOL
+
+
 # the other shipped geometries: 12 frames of the billboard world streamed at
 # each camera's own image size and intrinsics (make_jax_reference.py)
-GEOMETRIES = {"kitti03": "kitti03_w12.npz", "d435i": "d435i_w12.npz"}
+GEOMETRIES = {"kitti03": "kitti03_w12.npz", "d435i": "d435i_w12.npz",
+              "kitti08": "kitti08_w12.npz", "multisense": "multisense_w12.npz"}
 # phase 5b's and tests/test_torch_long_horizon.py's divergence rule, for a
 # world whose reference is not fixed by float32 (its nudged reruns part)
 SPREAD_FACTOR = 2.0
@@ -160,19 +192,16 @@ def geometry_run(request):
     """The port's ``run_vo`` on the CPU over a stored geometry run's world:
     ``(name, port summaries, reference file, gt)``."""
     ref = _fixture(GEOMETRIES[request.param])
-    cfg = load_config(str(ref["config"]))
-    world = TSynthetic(cam=cfg.camera, n_frames=int(ref["n_frames"]),
-                       shape=tuple(int(s) for s in ref["shape"]),
-                       n_points=int(ref["n_points"]), seed=int(ref["seed"]),
-                       speed=float(ref["speed"]), yaw_rate=float(ref["yaw_rate"]))
+    cfg, world = _stored_world(ref)
     run = cpu_run_vo(world, cfg, chunk_size=int(ref["chunk_size"]))
     return request.param, run_summaries(run), ref, world.gt_poses
 
 
 def test_other_geometry_frame_by_frame(geometry_run):
-    """``kitti03`` (375x1242) holds frame by frame; ``d435i`` (480x640, a 5 cm
-    baseline) by the divergence rule: its reference's own one-ulp-nudged
-    reruns part from it at frame 2."""
+    """``kitti03`` (375x1242) and ``kitti08`` (370x1226) hold frame by frame;
+    ``d435i`` (480x640, a 5 cm baseline) and ``multisense`` (801x801, 7 cm)
+    by the divergence rule: their references' own one-ulp-nudged reruns
+    part from them at frames 2-3."""
     name, got, ref, gt = geometry_run
     want = ref["summaries"]
     assert got.shape == want.shape == (12, 19) and want[:, 7].sum() >= 10

@@ -16,7 +16,9 @@ import dataclasses
 import numpy as np
 import torch
 
-# the tier-1 run uses several xdist workers per machine: one thread each
+# torch's own thread count, before the tier-1 run's several xdist workers
+# per machine take one thread each
+DEFAULT_THREADS = torch.get_num_threads()
 torch.set_num_threads(1)
 
 
