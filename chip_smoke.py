@@ -64,13 +64,19 @@ JAX or of the JAX package. Phases, each fatal on failure:
    (CUDA events, median of 20 samples), the kernel's device time per call
    read from ``torch.profiler``, beside the bound from this run's bytes and
    operations (no one PyTorch call computes sparse BM: no library time);
-3d. greedy-NMS kernel check: ``greedy_nms`` against ``greedy_nms_ref`` on the
-   candidate pools of frames 0-4 of phase 4's world and of frame 0 of the
-   photo world, on 1024 valid candidates in one conflict chain, on none
-   valid and on clusters at the image corners, bitwise, one launch per
-   call; each call timed, the plain version too, the kernel's device time
-   per launch from ``torch.profiler``, beside the bound (10 B per candidate
-   or one pair test per pair of valid candidates; no library time);
+3d. greedy-NMS kernel check: ``greedy_nms`` against ``greedy_nms_ref`` (the
+   accepted set) and ``greedy_nms_pack_ref`` (detection's cap at 300 and
+   pack, in the same launch) on the candidate pools of frames 0-4 of phase
+   4's world and of frame 0 of the photo world, on 1024 valid candidates in
+   one conflict chain, on none valid, on clusters at the image corners and
+   on ``NMS_POOLS`` (seeded pools of 1500 and 4096 candidates at two
+   densities, coordinates on the binning's cell borders, a pool wider than
+   its grid, non-finite coordinates), bitwise, one launch per call; for each
+   set the plain fixpoint's rounds, the kernel's conflict pairs, bit-row
+   candidates, grid and SM cycles by phase, the
+   packed call timed, the plain version too, the kernel's device time per
+   launch from ``torch.profiler``, beside the bound (13 B per candidate and
+   per packed row, or one pair test per conflicting pair; no library time);
 4. main path: ``run_vo`` over a 20-frame synthetic KITTI-sized world
    (376x1241, ``kitti00`` intrinsics, default capacities) on ``cuda``, with
    the kernels' launch counters zeroed just before and read just after; it
@@ -88,7 +94,10 @@ JAX or of the JAX package. Phases, each fatal on failure:
    steps 8-11: kernel and graph launches, syncs and device ms per keyframe
    step, each kernel's launches in the device trace equal to its wrapper's
    count, each step (with its summary fetch) one graph launch, no kernel
-   launch and at most ``STEP_SYNCS_MAX`` syncs, step p50; then the
+   launch and at most ``STEP_SYNCS_MAX`` syncs, step p50, the device kernels
+   per keyframe step; the device kernels of one greedy detection on frame 0
+   with the cap and pack in the NMS kernel against the same with them as
+   torch ops (fewer, outputs bitwise equal); then the
    Shi-Tomasi response on frame 0 of the photo world (phase 5b's): the pixels
    where the card's differs from the CPU's (want 0, single image and a stack
    of three), and its device time per frame beside the former formula's;
@@ -194,7 +203,8 @@ counted). The line before the last is the kernels' JSON record, with
 launches summed over phases 4-6 and 8b, the headline shape's times
 (extraction: 160 regions of 56x56 at level 0; LK: the level-0 forward pass,
 56x56, N = 160; sparse BM: the 748-slot keyframe input at <= 320 valid on
-the synthetic frame; greedy NMS: frame 0's candidate pool), each call's
+the synthetic frame; greedy NMS: frame 0's candidate pool, the fixpoint
+with the cap and pack at 300), each call's
 time and its kernel's device time per launch, and bounds; the last line is ``{"ok": true,
 "device": {...}}``. Without a CUDA device, or without the package beside it,
 the script exits non-zero before printing any result.
@@ -349,8 +359,13 @@ FAST_SHIFTS = (40, 100, 160, 200)
 BM_SETS = ("bootstrap_n300", "keyframe_n748_le320", "keyframe_n748_all_valid",
            "all_invalid_n748", "empty_n0")
 BM_HEADLINE = "synthetic keyframe_n748_le320"
-# phase 3d: the headline greedy-NMS set (frame 0's candidate pool)
+# phase 3d: the headline greedy-NMS set (frame 0's candidate pool), and the
+# seeded pools beside the frames' (_nms_pool): over 1024 candidates at two
+# densities (the dense 4096 overflows the kernel's shared lists into bit
+# rows), the binning's cell borders, a grid that grows, non-finite values
 NMS_HEADLINE = "billboard0"
+NMS_POOLS = ("random1500_sparse", "random1500_dense", "random4096_sparse", "random4096_dense",
+             "cell_borders", "wide", "nonfinite")
 # phases 4b, 4d and 6b: host syncs allowed per streamed step (the step is one
 # graph launch with no read; the summary fetch is the one wait) and inside
 # replay_chunk, between its first frame and its last (none), and the steps
@@ -996,12 +1011,75 @@ def _bm_kernel_check(torch, cfg, pairs, dev) -> dict:
     return {**head, "max_abs_err": max_err}
 
 
+def _bits_equal(torch, a, b) -> bool:
+    """``a`` and ``b`` bitwise equal (NaN payloads and signed zeros too)."""
+    if a.dtype != b.dtype or a.shape != b.shape:
+        return False
+    if a.dtype == torch.float32:
+        a, b = a.view(torch.int32), b.view(torch.int32)
+    return torch.equal(a, b)
+
+
+def _abs_err(torch, a, b) -> float:
+    """The largest |a - b|, 0 where both are NaN or equal infinities, and 0
+    for empty tensors."""
+    if a.numel() == 0:
+        return 0.0
+    a, b = a.float(), b.float()
+    same = (a == b) | (torch.isnan(a) & torch.isnan(b))
+    return float(torch.where(same, 0.0, (a - b).abs().nan_to_num(float("inf"))).max())
+
+
+def _nms_pool(name: str):
+    """A seeded candidate pool for the edges of ``csrc/greedy_nms.cu``, as
+    ``tests/torch_port_helpers.py::nms_pool`` makes it: ``(cxy [C, 2] f32,
+    cvalid [C] bool, r2)`` in numpy. ``random<C>_sparse`` / ``_dense``:
+    integer pixels over a 1241x376 frame / a 160x160 patch, 90% valid;
+    ``cell_borders``: r2 1024 (cell side 32) and coordinates on, and one ulp
+    either side of, multiples of 32; ``wide``: spread over a million pixels,
+    where the grid's cells grow; ``nonfinite``: NaN, infinite and
+    near-overflow coordinates in a cluster."""
+    import numpy as np
+
+    f32 = np.float32
+    up = lambda v: np.nextafter(f32(v), f32(np.inf))        # noqa: E731
+    down = lambda v: np.nextafter(f32(v), f32(-np.inf))     # noqa: E731
+    if name.startswith("random"):
+        c, density = name[6:].split("_")
+        c = int(c)
+        rng = np.random.default_rng(c * 2 + (density == "dense"))
+        span = (1241, 376) if density == "sparse" else (160, 160)
+        cxy = np.stack([rng.integers(0, span[0], c), rng.integers(0, span[1], c)], 1)
+        return cxy.astype(f32), rng.random(c) < 0.9, 900.0
+    if name == "cell_borders":
+        tiny = np.nextafter(f32(0), f32(1))
+        xs = [-64.0, down(-32), -32.0, up(-32), -tiny, -0.0, 0.0, tiny, down(32), 32.0, up(32),
+              down(64), 64.0, up(64), down(96), 96.0, down(128)]
+        ys = [0.0, down(32), 32.0, up(32), 64.0, down(-32)]
+        cxy = np.array([[x, y] for y in ys for x in xs], f32)
+        order = np.random.default_rng(5).permutation(len(cxy))
+        return cxy[order], np.ones(len(cxy), bool), 1024.0
+    if name == "wide":
+        rng = np.random.default_rng(7)
+        spread = rng.integers(0, 1_000_000, (512, 2))
+        near = rng.integers(0, 80, (512, 2)) + rng.integers(0, 4, (512, 1)) * 250_000
+        cxy = np.concatenate([spread, near])[rng.permutation(1024)]
+        return cxy.astype(f32), rng.random(1024) < 0.9, 900.0
+    rng = np.random.default_rng(9)          # nonfinite
+    cxy = rng.integers(0, 100, (256, 2)).astype(f32)
+    odd = [np.nan, np.inf, -np.inf, f32(3e38), f32(-3e38)]
+    for k in range(40):
+        cxy[rng.integers(0, 256), rng.integers(0, 2)] = odd[k % len(odd)]
+    return cxy, rng.random(256) < 0.95, 900.0
+
+
 def _nms_sets(torch, cfg, world, photo, dev) -> dict:
-    """Phase 3d's inputs: ``{set: (cxy, cvalid, r2)}`` on the card, the
-    candidate pools of frames 0-4 of the 20-frame world and of a photo frame,
-    1024 valid candidates in one conflict chain (each conflicts with its
-    neighbours only), 1024 with none valid, and clusters at the corners of a
-    376x1241 frame."""
+    """Phase 3d's inputs: ``{set: (cxy, cvalid, cvals, r2)}`` on the card,
+    the candidate pools of frames 0-4 of the 20-frame world and of a photo
+    frame (their own responses), 1024 valid candidates in one conflict
+    chain (each conflicts with its neighbours only), 1024 with none valid,
+    clusters at the corners of a 376x1241 frame, and ``NMS_POOLS``
+    (``_nms_pool``); where a set has no responses, descending ones stand in."""
     from stereo_vo_tpu_torch.ops.shi_tomasi import corner_candidates
 
     fc = cfg.frontend
@@ -1011,58 +1089,145 @@ def _nms_sets(torch, cfg, world, photo, dev) -> dict:
         img = torch.from_numpy(world.render(i)[0]).to(dev).to(torch.float32)
         cxy, cvals = corner_candidates(img, fc.quality_level, fc.min_distance,
                                        fc.detect_block_size)
-        sets[f"billboard{i}"] = (cxy, cvals > 0, r2)
+        sets[f"billboard{i}"] = (cxy, cvals > 0, cvals, r2)
     cxy, cvals = corner_candidates(torch.from_numpy(photo).to(dev).to(torch.float32),
                                    fc.quality_level, fc.min_distance, fc.detect_block_size)
-    sets["photo0"] = (cxy, cvals > 0, r2)
+    sets["photo0"] = (cxy, cvals > 0, cvals, r2)
+
+    def stand_in(cxy, cvalid, r2):
+        cvals = torch.where(cvalid, torch.linspace(2.0, 1.0, cxy.shape[0], device=dev), -1.0)
+        return cxy, cvalid, cvals, r2
+
     x = torch.arange(1024, dtype=torch.float32, device=dev)
     ones = torch.ones(1024, dtype=torch.bool, device=dev)
-    sets["chain1024"] = (torch.stack([x, torch.full_like(x, 7.0)], 1), ones, 4.0)
+    sets["chain1024"] = stand_in(torch.stack([x, torch.full_like(x, 7.0)], 1), ones, 4.0)
     gen = torch.Generator(device="cpu").manual_seed(0)
     pts = (torch.rand((1024, 2), generator=gen) * 1000).floor().to(dev)
-    sets["none_valid"] = (pts, torch.zeros_like(ones), r2)
+    sets["none_valid"] = stand_in(pts, torch.zeros_like(ones), r2)
     corners = torch.tensor([[0.0, 0.0], [1240.0, 0.0], [0.0, 375.0], [1240.0, 375.0]])
     off = torch.randint(0, 40, (1024, 2), generator=gen).to(torch.float32)
     k = torch.arange(1024) % 4
     cxy = corners[k] + off * torch.where(corners > 0, -1.0, 1.0)[k]
-    sets["corners"] = (cxy.to(dev), (torch.rand(1024, generator=gen) < 0.9).to(dev), r2)
+    sets["corners"] = stand_in(cxy.to(dev), (torch.rand(1024, generator=gen) < 0.9).to(dev), r2)
+    for name in NMS_POOLS:
+        cxy, cvalid, pool_r2 = _nms_pool(name)
+        sets[name] = stand_in(torch.from_numpy(cxy).to(dev), torch.from_numpy(cvalid).to(dev),
+                              pool_r2)
     return sets
 
 
 def _nms_check(torch, cfg, world, photo, dev) -> dict:
-    """Phase 3d: ``greedy_nms`` against ``greedy_nms_ref`` on the card at the
-    sets of ``_nms_sets``, bitwise, one launch per call; each call timed
-    (CUDA events) beside the plain version, the kernel's device time per
-    launch from ``torch.profiler`` and the bound. Returns the headline's
-    record and the largest difference (in accepted flags)."""
-    from stereo_vo_tpu_torch.ops.shi_tomasi import greedy_nms, greedy_nms_ref
+    """Phase 3d: ``greedy_nms`` against its plain versions on the card at
+    the sets of ``_nms_sets``, bitwise, one launch per call: the accepted
+    set (``greedy_nms_rounds``, with its rounds) with the kernel's counts
+    (conflict pairs, bit-row candidates, grid, SM cycles by phase), and
+    detection's capped pack at
+    ``max_detect`` (``greedy_nms_pack_ref``); the pack's call timed (CUDA
+    events) beside the plain version, its device time per launch from
+    ``torch.profiler`` and the bound. Returns the headline's record and the
+    largest difference (in accepted flags and packed values)."""
+    import numpy as np
 
+    from stereo_vo_tpu_torch.ops.shi_tomasi import (
+        NMS_STATS,
+        greedy_nms,
+        greedy_nms_pack_ref,
+        greedy_nms_rounds,
+    )
+
+    k = cfg.frontend.max_detect
     head, max_err = None, 0.0
-    for name, (cxy, cvalid, r2) in _nms_sets(torch, cfg, world, photo, dev).items():
+    for name, (cxy, cvalid, cvals, r2) in _nms_sets(torch, cfg, world, photo, dev).items():
+        stats = torch.zeros(len(NMS_STATS), dtype=torch.int64, device=dev)
         before = greedy_nms.launches
-        got = greedy_nms(cxy, cvalid, r2)
+        got = greedy_nms(cxy, cvalid, r2, stats=stats)
         torch.cuda.synchronize()
         _check(greedy_nms.launches == before + 1, f"greedy_nms: one launch at {name}")
-        want = greedy_nms_ref(cxy, cvalid, r2)
+        want, rounds = greedy_nms_rounds(cxy, cvalid, r2)
         max_err = max(max_err, float((got.float() - want.float()).abs().max()))
         _check(torch.equal(got, want), f"greedy_nms equals its plain version at {name}")
         if name == "chain1024":
             _check(torch.equal(got.cpu(), torch.arange(1024) % 2 == 0), "chain: every other one")
-        call = lambda: greedy_nms(cxy, cvalid, r2)
+        counts = dict(zip(NMS_STATS, stats.tolist()))
+        side = float(np.int32(counts.pop("cell_side_bits")).view(np.float32))
+        packed = greedy_nms(cxy, cvalid, r2, cvals, k)
+        torch.cuda.synchronize()
+        _check(greedy_nms.launches == before + 2, f"greedy_nms: one launch for the pack at {name}")
+        plain = greedy_nms_pack_ref(cxy, cvalid, cvals, r2, k)
+        for g, w in zip(packed, plain):
+            max_err = max(max_err, _abs_err(torch, g, w))
+            _check(_bits_equal(torch, g, w),
+                   f"greedy_nms's pack equals its plain version at {name}")
+        call = lambda: greedy_nms(cxy, cvalid, r2, cvals, k)
         k_ms = _time_ms(torch, call)
         dev_us = _device_us(torch, call, "greedy_nms_kernel", greedy_nms)
-        p_ms = _time_ms(torch, lambda: greedy_nms_ref(cxy, cvalid, r2), samples=5, inner=2)
+        p_ms = _time_ms(torch, lambda: greedy_nms_pack_ref(cxy, cvalid, cvals, r2, k),
+                        samples=5, inner=2)
         c, n_valid = cxy.shape[0], int(cvalid.sum())
-        # bytes: 9 in and 1 out per candidate; operations: one pair test per
-        # pair of valid candidates
-        bound, bound_by = _bound_ms(10 * c, float(n_valid) ** 2)
+        # bytes: 13 in per candidate (xy, valid, response) and 13 out per
+        # packed row; operations: one pair test (two differences, two
+        # products, a sum) per conflicting pair, the least any build tests
+        bound, bound_by = _bound_ms(13 * (c + min(c, k)), 5.0 * counts["pairs"])
         _log(f"check greedy_nms {name}: {c} candidates, {n_valid} valid, {int(got.sum())} "
-             f"accepted, bitwise equal; call {k_ms * 1e3:.1f} us ({dev_us:.2f} us of it on the "
-             f"device), plain {p_ms * 1e3:.1f} us, bound {bound * 1e3:.4f} us ({bound_by})")
+             f"accepted, {rounds} rounds of the plain fixpoint, {counts['pairs']} conflict "
+             f"pairs ({counts['bit_rows']} candidates in bit rows), grid {counts['grid_w']}x"
+             f"{counts['grid_h']} cells of {side:g} px, bitwise equal (fixpoint and pack); "
+             f"pack call {k_ms * 1e3:.2f} us ({dev_us:.2f} us of it on the device), plain "
+             f"{p_ms * 1e3:.1f} us, bound {bound * 1e3:.4f} us ({bound_by}); SM cycles by "
+             f"phase " + json.dumps({key[7:]: v for key, v in counts.items()
+                                     if key.startswith("cycles_")}))
         if name == NMS_HEADLINE:
             head = {"ms": k_ms, "device_ms": dev_us / 1e3, "plain_ms": p_ms,
                     "bound_ms": bound, "bound_by": bound_by}
     return {**head, "max_abs_err": max_err}
+
+
+def _detect_kernels(torch, cfg, img, dev) -> dict:
+    """Phase 4b: the device kernels of one greedy ``detect_corners`` on
+    ``img`` (the fixpoint, cap and pack in one launch) against the same
+    detection with the cap and pack as the torch ops after a fixpoint-only
+    launch (detection before the pack joined the kernel), both from
+    ``torch.profiler``; bitwise the same outputs."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from stereo_vo_tpu_torch.ops import shi_tomasi as st
+
+    fc = cfg.frontend
+    kw = dict(quality_level=fc.quality_level, min_distance=fc.min_distance,
+              block_size=fc.detect_block_size)
+    r2 = fc.min_distance * fc.min_distance
+    resp = st.min_eig_response(img, fc.detect_block_size)
+
+    def fused():
+        return st.detect_corners(img, fc.max_detect, resp=resp, **kw)
+
+    def separate():
+        cxy, cvals = st.corner_candidates(img, resp=resp, **kw)
+        cvalid = cvals > 0
+        accepted = st.greedy_nms(cxy, cvalid, r2)
+        rank = torch.cumsum(accepted.to(torch.int32), dim=0)
+        accepted = accepted & (rank <= fc.max_detect)
+        sel = torch.sort((~accepted).to(torch.uint8), stable=True).indices[:fc.max_detect]
+        valid = accepted[sel]
+        return cxy[sel], torch.where(valid, cvals[sel], -1.0), valid
+
+    out = {}
+    results = {}
+    for label, fn in (("fused", fused), ("separate", separate)):
+        fn()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            results[label] = fn()
+            torch.cuda.synchronize()
+        out[label] = sum(e.count for e in prof.key_averages()
+                         if e.device_type == DeviceType.CUDA
+                         and not getattr(e, "is_user_annotation", False))
+    for g, w in zip(results["fused"], results["separate"]):
+        _check(_bits_equal(torch, g, w), "detect_corners: the fused pack equals the torch ops")
+    _check(out["fused"] < out["separate"],
+           f"detect_corners: fewer device kernels with the pack in the kernel: {out}")
+    return out
 
 
 def _check_streamed_steps(what, steps) -> None:
@@ -2033,6 +2198,12 @@ def main() -> int:
     _phase("4b")
     prof = _in_child("_keyframe_profile_child")
     _log("profile, keyframe steps 8-11 streamed: " + json.dumps(prof))
+    _log(f"device kernels per keyframe step (steps 8-11): {prof['keyframe_step']['kernels']}")
+    det = _detect_kernels(torch, cfg, torch.from_numpy(world_frames[0].left).to(dev).to(
+        torch.float32), dev)
+    _log(f"device kernels of one greedy detect_corners on frame 0: {det['fused']} with the cap "
+         f"and pack in the NMS kernel, {det['separate']} with them as torch ops after it "
+         f"(the pack's launches: {det['separate'] - det['fused']})")
     _response_check(torch, photo0, dev)
     bm_traced = prof["kernel_launches"]["stereo_bm_at_kernel"]
     _check(prof["keyframes_profiled"] > 0 and bm_traced == prof["keyframes_profiled"],
@@ -2102,7 +2273,7 @@ def main() -> int:
         "name": "greedy_nms",
         "route": "cuda",
         "source": "stereo_vo_tpu_torch/csrc/greedy_nms.cu",
-        "replaces": "stereo_vo_tpu/ops/shi_tomasi.py:221 (XLA while_loop)",
+        "replaces": "stereo_vo_tpu/ops/shi_tomasi.py:221 (XLA while_loop) and :223-235 (cap, pack)",
         "launches": total("greedy_nms"),
         **nms_record,
         "library_ms": None,

@@ -3,12 +3,13 @@
 
 1. min-eigenvalue response: Sobel gradients, 3x3 box-summed structure tensor;
 2. quality gate at ``quality_level * max(response)`` and a 3x3 local-max test;
-3. greedy min-distance suppression over a candidate pool, run as the same
-   parallel fixpoint as the reference (accepted set identical to the
-   sequential descending-response sweep): ``greedy_nms``, on the card one
-   launch of ``csrc/greedy_nms.cu``; or with ``nms="maxpool"`` a
+3. greedy min-distance suppression over a candidate pool of any size, run
+   as the same parallel fixpoint as the reference (accepted set identical to
+   the sequential descending-response sweep); or with ``nms="maxpool"`` a
    windowed-max test over ``min_distance``;
-4. the first ``max_corners`` accepted corners into a fixed ``[K, 2]`` array.
+4. the first ``max_corners`` accepted corners into a fixed ``[K, 2]`` array:
+   with greedy NMS, ``greedy_nms`` does 3 and 4 in one launch of
+   ``csrc/greedy_nms.cu`` on the card.
 
 Ordering is pinned explicitly: candidates sort by (value desc, flat index
 asc), which is what the reference's ``lax.top_k`` gives; ``torch.topk`` does
@@ -67,11 +68,11 @@ def count_quality_peaks(
     return torch.sum(is_peak.to(torch.int32), dim=(-2, -1))
 
 
-def greedy_nms_ref(cxy: torch.Tensor, cvalid: torch.Tensor, r2: float) -> torch.Tensor:
-    """The greedy fixpoint over candidates ``cxy [C, 2]`` sorted by descending
-    response: ``accepted [C]`` bool, the set the sequential sweep keeps with
-    squared distance ``r2``. The plain version of ``greedy_nms``: one host
-    read per round.
+def greedy_nms_rounds(cxy: torch.Tensor, cvalid: torch.Tensor, r2: float):
+    """The greedy fixpoint over candidates ``cxy [C, 2]`` sorted by
+    descending response: ``(accepted [C] bool, rounds)``, the set the
+    sequential sweep keeps with squared distance ``r2`` and the rounds the
+    fixpoint took (the longest suppression chain). One host read per round.
 
     Candidate i is accepted once every earlier conflicting candidate is
     decided and none was accepted, killed once an earlier conflicting
@@ -84,43 +85,84 @@ def greedy_nms_ref(cxy: torch.Tensor, cvalid: torch.Tensor, r2: float) -> torch.
 
     accepted = torch.zeros(c, dtype=torch.bool, device=cxy.device)
     killed = torch.zeros(c, dtype=torch.bool, device=cxy.device)
+    rounds = 0
     still = bool(cvalid.any())
     while still:
+        rounds += 1
         pending = cvalid & ~accepted & ~killed
         blocked = (pending.to(torch.float32) @ conflicts) > 0.0
         by_acc = (accepted.to(torch.float32) @ conflicts) > 0.0
         killed = killed | (pending & by_acc)
         accepted = accepted | (pending & ~by_acc & ~blocked)
         still = bool((cvalid & ~accepted & ~killed).any())
-    return accepted
+    return accepted, rounds
 
 
-# the kernel runs the fixpoint in one block of this many threads
-GREEDY_NMS_MAX = 1024
+def greedy_nms_ref(cxy: torch.Tensor, cvalid: torch.Tensor, r2: float) -> torch.Tensor:
+    """``greedy_nms_rounds``' accepted set: the plain version of
+    ``greedy_nms``."""
+    return greedy_nms_rounds(cxy, cvalid, r2)[0]
 
-_nms_fn = None
+
+def greedy_nms_pack_ref(cxy: torch.Tensor, cvalid: torch.Tensor, cvals: torch.Tensor,
+                        r2: float, max_corners: int):
+    """``greedy_nms_ref``'s accepted set capped at its first ``max_corners``
+    and packed as ``detect_corners`` returns it: ``(xy [K, 2], response [K],
+    valid [K])`` with ``K = min(C, max_corners)``, the capped accepted
+    candidates in index order, then the others in index order with response
+    -1. The plain version of ``greedy_nms`` with ``cvals``."""
+    accepted = greedy_nms_ref(cxy, cvalid, r2)
+    # cap at max_corners by acceptance rank
+    rank = torch.cumsum(accepted.to(torch.int32), dim=0)
+    accepted = accepted & (rank <= max_corners)
+
+    order = torch.sort((~accepted).to(torch.uint8), stable=True).indices
+    sel = order[:max_corners]
+    valid = accepted[sel]
+    return cxy[sel], torch.where(valid, cvals[sel], -1.0), valid
+
+
+# what the kernel reports when given ``stats``: conflict pairs, the
+# candidates whose conflicts went to a bit row, the binning grid's width and
+# height in cells, the cell side's float32 bits, and the SM cycles of its
+# phases (bounding box and grid, counting sort, pair tests, bit rows and the
+# first round, the other rounds, output)
+NMS_STATS = ("pairs", "bit_rows", "grid_w", "grid_h", "cell_side_bits", "cycles_grid",
+             "cycles_sort", "cycles_pairs", "cycles_first_round", "cycles_rounds",
+             "cycles_out")
+
+_nms_fns = None
 
 
 def _nms_kernel():
-    """The kernel's C entry point, built, loaded and typed at first use."""
-    global _nms_fn
-    if _nms_fn is None:
+    """The kernel's C entry points, the launch and the size of its scratch,
+    built, loaded and typed at first use."""
+    global _nms_fns
+    if _nms_fns is None:
         from stereo_vo_tpu_torch import cuda_build
 
-        fn = cuda_build.load("greedy_nms").svo_greedy_nms
-        fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
-                       ctypes.c_float, ctypes.c_void_p]
+        lib = cuda_build.load("greedy_nms")
+        fn = lib.svo_greedy_nms
+        fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int, ctypes.c_int, ctypes.c_float,
+                                               ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p]
         fn.restype = ctypes.c_int
-        _nms_fn = fn
-    return _nms_fn
+        size = lib.svo_greedy_nms_scratch_bytes
+        size.argtypes = [ctypes.c_int]
+        size.restype = ctypes.c_longlong
+        _nms_fns = (fn, size)
+    return _nms_fns
 
 
-def greedy_nms(cxy: torch.Tensor, cvalid: torch.Tensor, r2: float) -> torch.Tensor:
-    """``greedy_nms_ref``'s accepted set. CUDA tensors go through the kernel
-    ``csrc/greedy_nms.cu``, the whole fixpoint in one launch with no host
-    read (each launch adds one to ``greedy_nms.launches``; at most
-    ``GREEDY_NMS_MAX`` candidates, contiguous); CPU tensors through
-    ``greedy_nms_ref``."""
+def greedy_nms(cxy: torch.Tensor, cvalid: torch.Tensor, r2: float,
+               cvals: torch.Tensor = None, max_corners: int = None,
+               stats: torch.Tensor = None):
+    """``greedy_nms_ref``'s accepted set ``[C]``; given ``cvals`` and
+    ``max_corners``, ``greedy_nms_pack_ref``'s ``(xy, response, valid)``
+    instead. CUDA tensors go through the kernel ``csrc/greedy_nms.cu``: the
+    whole fixpoint, and the cap and pack, in one launch with no host read
+    (each launch adds one to ``greedy_nms.launches``; any C, contiguous;
+    ``stats``, an int64 ``[len(NMS_STATS)]`` tensor on the card, receives
+    the kernel's counts). CPU tensors go through the plain versions."""
     dev = cxy.device
     c = cxy.shape[0]
     if cxy.dim() != 2 or cxy.shape[1] != 2 or cxy.dtype != torch.float32:
@@ -128,25 +170,51 @@ def greedy_nms(cxy: torch.Tensor, cvalid: torch.Tensor, r2: float) -> torch.Tens
     if tuple(cvalid.shape) != (c,) or cvalid.dtype != torch.bool or cvalid.device != dev:
         raise ValueError(f"cvalid must be [{c}] bool on {dev}, got {tuple(cvalid.shape)} "
                          f"{cvalid.dtype} on {cvalid.device}")
+    pack = cvals is not None
+    if pack != (max_corners is not None):
+        raise ValueError("greedy_nms: give both cvals and max_corners, or neither")
+    if pack:
+        if tuple(cvals.shape) != (c,) or cvals.dtype != torch.float32 or cvals.device != dev:
+            raise ValueError(f"cvals must be [{c}] float32 on {dev}, got {tuple(cvals.shape)} "
+                             f"{cvals.dtype} on {cvals.device}")
+        if max_corners < 0:
+            raise ValueError(f"max_corners must be >= 0, got {max_corners}")
     if dev.type == "cpu":
+        if stats is not None:
+            raise ValueError("greedy_nms: stats are the kernel's, on the card")
+        if pack:
+            return greedy_nms_pack_ref(cxy, cvalid, cvals, r2, max_corners)
         return greedy_nms_ref(cxy, cvalid, r2)
     if dev.type != "cuda":
         raise ValueError(f"greedy_nms: unsupported device {dev}")
-    if c > GREEDY_NMS_MAX:
-        raise ValueError(f"greedy_nms: {c} candidates, the kernel takes at most {GREEDY_NMS_MAX}")
-    if not (cxy.is_contiguous() and cvalid.is_contiguous()):
-        raise ValueError("greedy_nms: cxy and cvalid must be contiguous")
-    accepted = torch.empty(c, dtype=torch.bool, device=dev)
+    if not (cxy.is_contiguous() and cvalid.is_contiguous()
+            and (not pack or cvals.is_contiguous())):
+        raise ValueError("greedy_nms: cxy, cvalid and cvals must be contiguous")
+    if stats is not None and (tuple(stats.shape) != (len(NMS_STATS),)
+                              or stats.dtype != torch.int64 or stats.device != dev):
+        raise ValueError(f"stats must be [{len(NMS_STATS)}] int64 on {dev}")
+    if pack:
+        k = min(c, max_corners)
+        out = (torch.empty(k, 2, dtype=torch.float32, device=dev),
+               torch.empty(k, dtype=torch.float32, device=dev),
+               torch.empty(k, dtype=torch.bool, device=dev))
+        ptrs = (0, out[0].data_ptr(), out[1].data_ptr(), out[2].data_ptr())
+    else:
+        out = torch.empty(c, dtype=torch.bool, device=dev)
+        ptrs = (out.data_ptr(), 0, 0, 0)
     if c == 0:
-        return accepted
-    fn = _nms_kernel()
+        return out
+    fn, scratch_bytes = _nms_kernel()
+    scratch = torch.empty(scratch_bytes(c), dtype=torch.uint8, device=dev)
     with torch.cuda.device(dev):
-        rc = fn(cxy.data_ptr(), cvalid.data_ptr(), accepted.data_ptr(), c, r2,
+        rc = fn(cxy.data_ptr(), cvalid.data_ptr(), cvals.data_ptr() if pack else 0, *ptrs, c,
+                min(max_corners, c) if pack else 0, r2, scratch.data_ptr(),
+                0 if stats is None else stats.data_ptr(),
                 torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"greedy_nms kernel launch failed: CUDA error {rc}")
     greedy_nms.launches += 1
-    return accepted
+    return out
 
 
 greedy_nms.launches = 0
@@ -270,14 +338,5 @@ def detect_corners(
         return xy, vals, vals > 0
 
     cxy, cvals = _candidate_pool(resp, is_peak, window_peaks, min_distance, candidates)
-    cvalid = cvals > 0
     r2 = float(min_distance) * float(min_distance)
-    accepted = greedy_nms(cxy, cvalid, r2)
-    # cap at max_corners by acceptance rank
-    rank = torch.cumsum(accepted.to(torch.int32), dim=0)
-    accepted = accepted & (rank <= max_corners)
-
-    order = torch.sort((~accepted).to(torch.uint8), stable=True).indices
-    sel = order[:max_corners]
-    valid = accepted[sel]
-    return cxy[sel], torch.where(valid, cvals[sel], -1.0), valid
+    return greedy_nms(cxy, cvals > 0, r2, cvals, max_corners)

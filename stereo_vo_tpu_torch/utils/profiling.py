@@ -129,8 +129,9 @@ def range_calls(prof, name: str) -> List[Dict[str, float]]:
     """For each ``record_function(name)`` range in a profile, in order, the
     runtime calls inside it (``syncs``, ``launches``, ``graph_launches`` and
     ``copies``, host-side events only: the profiler also draws each range on
-    the device's timeline), its host wall ``wall_ms``, and the device time
-    of the kernels that started inside it, ``device_ms``."""
+    the device's timeline), its host wall ``wall_ms``, and the number and
+    device time of the kernels that started inside it, ``kernels`` and
+    ``device_ms``."""
     import bisect
 
     from torch.autograd import DeviceType
@@ -146,7 +147,7 @@ def range_calls(prof, name: str) -> List[Dict[str, float]]:
     out = []
     for start, end, _ in (h for h in host if h[2] == name):
         calls = {"syncs": 0, "launches": 0, "graph_launches": 0, "copies": 0,
-                 "wall_ms": (end - start) / 1e3, "device_ms": 0.0}
+                 "wall_ms": (end - start) / 1e3, "kernels": 0, "device_ms": 0.0}
         lo, hi = bisect.bisect_left(host_starts, start), bisect.bisect_right(host_starts, end)
         for _, e_end, e_name in host[lo:hi]:
             if e_end > end:
@@ -160,6 +161,7 @@ def range_calls(prof, name: str) -> List[Dict[str, float]]:
             elif e_name.startswith("cudaMemcpy"):
                 calls["copies"] += 1
         lo, hi = bisect.bisect_left(kernel_starts, start), bisect.bisect_left(kernel_starts, end)
+        calls["kernels"] = hi - lo
         calls["device_ms"] = sum(k_end - k_start for k_start, k_end in kernels[lo:hi]) / 1e3
         out.append(calls)
     return out
@@ -170,7 +172,7 @@ def _mean_calls(rows) -> Optional[Dict[str, float]]:
     ms over wall ms) and their count; ``None`` for no row."""
     if not rows:
         return None
-    keys = ("syncs", "launches", "graph_launches", "copies", "wall_ms", "device_ms")
+    keys = ("syncs", "launches", "graph_launches", "copies", "wall_ms", "kernels", "device_ms")
     mean = {k: sum(r[k] for r in rows) / len(rows) for k in keys}
     mean["busy_share"] = mean["device_ms"] / mean["wall_ms"] if mean["wall_ms"] > 0 else 0.0
     mean["steps"] = len(rows)

@@ -32,9 +32,11 @@ On the CPU:
 
 The ``cuda`` tests need the card (``python -m pytest
 tests/test_torch_sync_free.py -m cuda --noconftest -q``): ``greedy_nms``
-(``csrc/greedy_nms.cu``) bitwise its plain version on frames 0-4 of the
-20-frame world, a photo frame, 1024 valid candidates in one conflict chain,
-none valid and candidates at the image corners, one launch per call; and
+(``csrc/greedy_nms.cu``) bitwise its plain versions, the accepted set and
+the capped pack, on frames 0-4 of the 20-frame world, a photo frame, 1024
+valid candidates in one conflict chain, none valid, candidates at the image
+corners, seeded pools of 1025 to 4096 candidates and the binning's edges
+(``torch_port_helpers.nms_pool``), one launch per call; and
 the steps replayed from the step's CUDA graph bitwise the eager ones. JAX is
 imported inside the CPU tests only.
 """
@@ -747,6 +749,27 @@ def _nms_inputs(name, dev):
     return cxy.to(dev), valid.to(dev), r2
 
 
+def _nms_check_on_card(cxy, cvalid, r2, name):
+    """The kernel bitwise its plain versions, one launch per call: the
+    accepted set, and the capped pack at the default 300 detections and at
+    40 (responses descending, -1 where invalid)."""
+    before = tst.greedy_nms.launches
+    got = tst.greedy_nms(cxy, cvalid, r2)
+    torch.cuda.synchronize()
+    assert tst.greedy_nms.launches == before + 1
+    assert_equal(got.cpu(), tst.greedy_nms_ref(cxy, cvalid, r2).cpu(), name)
+    c = cxy.shape[0]
+    cvals = torch.where(cvalid, torch.linspace(2.0, 1.0, c, device=cxy.device), -1.0)
+    for k in (300, 40):
+        got = tst.greedy_nms(cxy, cvalid, r2, cvals, k)
+        torch.cuda.synchronize()
+        want = tst.greedy_nms_pack_ref(cxy, cvalid, cvals, r2, k)
+        for g, w, what in zip(got, want, ("xy", "response", "valid")):
+            assert_equal(g.cpu(), w.cpu(), f"{name} {what} at k={k}")
+    assert tst.greedy_nms.launches == before + 3
+    return got
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("name", ["billboard0", "billboard1", "billboard2", "billboard3",
                                   "billboard4", "photo0", "chain1024", "none_valid",
@@ -754,12 +777,8 @@ def _nms_inputs(name, dev):
 def test_cuda_greedy_nms_equals_plain_version(name):
     dev = _card()
     cxy, cvalid, r2 = _nms_inputs(name, dev)
-    before = tst.greedy_nms.launches
+    _nms_check_on_card(cxy, cvalid, r2, name)
     got = tst.greedy_nms(cxy, cvalid, r2)
-    torch.cuda.synchronize()
-    assert tst.greedy_nms.launches == before + 1
-    want = tst.greedy_nms_ref(cxy, cvalid, r2)
-    assert_equal(got.cpu(), want.cpu(), name)
     if name == "chain1024":
         assert_equal(got.cpu(), (torch.arange(1024) % 2 == 0), "every other one")
     if name == "none_valid":
@@ -767,11 +786,18 @@ def test_cuda_greedy_nms_equals_plain_version(name):
 
 
 @pytest.mark.cuda
-def test_cuda_greedy_nms_raises_over_its_block():
+@pytest.mark.parametrize("name", ["random1025_sparse", "random1500_sparse", "random1500_dense",
+                                  "random4096_sparse", "random4096_dense", "single",
+                                  "cell_borders", "ulp_pairs", "wide", "nonfinite"])
+def test_cuda_greedy_nms_any_pool_size(name):
+    """Over 1024 candidates (the dense 4096 pool's conflicts overflow the
+    kernel's shared lists into bit rows) and at the edges of its binning."""
+    from torch_port_helpers import nms_pool
+
     dev = _card()
-    with pytest.raises(ValueError):
-        tst.greedy_nms(torch.zeros(1025, 2, device=dev), torch.ones(1025, dtype=torch.bool,
-                                                                    device=dev), 4.0)
+    cxy, cvalid, r2 = nms_pool(name)
+    _nms_check_on_card(torch.from_numpy(cxy).to(dev), torch.from_numpy(cvalid).to(dev), r2,
+                       name)
 
 
 @pytest.mark.cuda

@@ -199,3 +199,62 @@ def fast_motion_slots(xy, valid, shift: int, width: int):
     valid &= xy[:, 0] + shift < width - 30
     xy[~valid] = np.array([5.0, 7.0], np.float32)
     return xy, valid
+
+
+def nms_pool(name: str):
+    """A greedy-NMS candidate pool made with numpy from a seed, for the edges
+    of ``csrc/greedy_nms.cu``: ``(cxy [C, 2] float32, cvalid [C] bool,
+    r2)``, candidates in index order (the sweep's order).
+
+    ``single``: one candidate. ``random<C>_sparse`` / ``random<C>_dense``:
+    integer pixels over a 1241x376 frame / a 160x160 patch (many conflicts a
+    candidate), 90% valid. ``cell_borders``: ``r2`` 1024, so the kernel's
+    cell side is 32 = sqrt(r2), and coordinates on, and one ulp either side
+    of, the multiples of 32, zero and the smallest subnormals of either sign
+    included. ``ulp_pairs``: pairs at d2 = r2 exactly and one ulp either
+    side, far apart from each other. ``wide``: clusters and candidates
+    spread over a million pixels, more cells than the kernel's grid holds at
+    the smallest side. ``nonfinite``: NaN, infinite and near-overflow
+    coordinates among a cluster."""
+    f32 = np.float32
+    up = lambda v: np.nextafter(f32(v), f32(np.inf))        # noqa: E731
+    down = lambda v: np.nextafter(f32(v), f32(-np.inf))     # noqa: E731
+    if name == "single":
+        return np.array([[5.0, 5.0]], f32), np.ones(1, bool), 900.0
+    if name.startswith("random"):
+        c, density = name[6:].split("_")
+        c = int(c)
+        rng = np.random.default_rng(c * 2 + (density == "dense"))
+        span = (1241, 376) if density == "sparse" else (160, 160)
+        cxy = np.stack([rng.integers(0, span[0], c), rng.integers(0, span[1], c)], 1)
+        return cxy.astype(f32), rng.random(c) < 0.9, 900.0
+    if name == "cell_borders":
+        tiny = np.nextafter(f32(0), f32(1))
+        xs = [-64.0, down(-32), -32.0, up(-32), -tiny, -0.0, 0.0, tiny, down(32), 32.0, up(32),
+              down(64), 64.0, up(64), down(96), 96.0, down(128)]
+        ys = [0.0, down(32), 32.0, up(32), 64.0, down(-32)]
+        cxy = np.array([[x, y] for y in ys for x in xs], f32)
+        order = np.random.default_rng(5).permutation(len(cxy))
+        return cxy[order], np.ones(len(cxy), bool), 1024.0
+    if name == "ulp_pairs":
+        pairs = []
+        for g, (dx, dy) in enumerate([(30.0, 0.0), (down(30), 0.0), (up(30), 0.0),
+                                      (18.0, 24.0), (18.0, down(24)), (18.0, up(24)),
+                                      (0.0, 30.0), (0.0, down(30)), (30.0, 1e-3)]):
+            x0, y0 = f32(200 * g + 50), f32(100)
+            pairs += [[x0, y0], [f32(x0 + f32(dx)), f32(y0 + f32(dy))]]
+        return np.array(pairs, f32), np.ones(len(pairs), bool), 900.0
+    if name == "wide":
+        rng = np.random.default_rng(7)
+        spread = rng.integers(0, 1_000_000, (512, 2))
+        near = rng.integers(0, 80, (512, 2)) + rng.integers(0, 4, (512, 1)) * 250_000
+        cxy = np.concatenate([spread, near])[rng.permutation(1024)]
+        return cxy.astype(f32), rng.random(1024) < 0.9, 900.0
+    if name == "nonfinite":
+        rng = np.random.default_rng(9)
+        cxy = rng.integers(0, 100, (256, 2)).astype(f32)
+        odd = [np.nan, np.inf, -np.inf, f32(3e38), f32(-3e38)]
+        for k in range(40):
+            cxy[rng.integers(0, 256), rng.integers(0, 2)] = odd[k % len(odd)]
+        return cxy, rng.random(256) < 0.95, 900.0
+    raise ValueError(name)
