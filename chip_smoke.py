@@ -19,10 +19,10 @@ JAX or of the JAX package. Phases, each fatal on failure:
    0 and 5 trips and with the IF's bool false; load the
    photo texture the port ships (``data/grace_hopper.jpg``, no matplotlib on
    the card's machine) and print its shape;
-2. build: compile the five CUDA sources, ``stereo_vo_tpu_torch/csrc/
+2. build: compile the six CUDA sources, ``stereo_vo_tpu_torch/csrc/
    extract_regions.cu``, ``lk_level.cu``, ``stereo_bm_at.cu``,
-   ``greedy_nms.cu`` and ``graph_cond.cu``, one nvcc each, started
-   together, and print each build's seconds and what ptxas reports;
+   ``greedy_nms.cu``, ``ba_lm.cu`` and ``graph_cond.cu``, one nvcc each,
+   started together, and print each build's seconds and what ptxas reports;
 3. region-extraction kernel check: the kernel against its plain PyTorch
    version (``extract_regions_ref``) at the shapes the main path gives it,
    at a stack over 6 MiB (where the JAX package takes its tiled variant) and
@@ -77,6 +77,15 @@ JAX or of the JAX package. Phases, each fatal on failure:
    packed call timed, the plain version too, the kernel's device time per
    launch from ``torch.profiler``, beside the bound (13 B per candidate and
    per packed row, or one pair test per conflicting pair; no library time);
+3e. bundle-adjustment kernel check (``_ba_hold``): ``ba_cost``,
+   ``ba_build``, ``ba_damp_reduce`` and ``ba_step`` (``csrc/ba_lm.cu``) on
+   the card against their plain versions (``backend/schur.py``) on the CPU
+   from the same inputs, on the windows the solves of steps 8-11 of phase
+   4's world start from, each compacted and full, within the ``BA_*``
+   tolerances; the whole LM loop through the kernels against the plain loop
+   (``it`` and accepted steps equal); at the first window each kernel's call
+   timed beside its plain version, its device time per launch and its bound
+   (``ba_damp_reduce`` also beside its Gram as one ``einsum``);
 4. main path: ``run_vo`` over a 20-frame synthetic KITTI-sized world
    (376x1241, ``kitti00`` intrinsics, default capacities) on ``cuda``, with
    the kernels' launch counters zeroed just before and read just after; it
@@ -84,8 +93,10 @@ JAX or of the JAX package. Phases, each fatal on failure:
    median tracked count over the steps (> 50), PnP on every accepted frame,
    exactly one ``lk_level_pass`` launch per LK level pass (forward plus
    backward), exactly one ``stereo_bm_at`` and one ``greedy_nms`` launch per
-   keyframe (bootstrap included) and no ``extract_regions`` launch, and the
-   aligned keyframe ATE; the whole step runs as one CUDA graph whose
+   keyframe (bootstrap included), no ``extract_regions`` launch, per solve
+   one ``ba_cost`` and ``1 + accepted`` ``ba_build`` launches and as many
+   ``ba_damp_reduce`` as ``ba_step`` launches, and the aligned keyframe
+   ATE; the whole step runs as one CUDA graph whose
    decisions are conditional nodes (the engine's default on the card) here
    and in every later phase; then (4b), in a child process (a long
    process's profiler drops kernels of the graph's conditional bodies; 4d
@@ -132,7 +143,10 @@ JAX or of the JAX package. Phases, each fatal on failure:
    ``SOLVE_CUT_RTOL`` (or ``SOLVE_CUT_ATOL_MS``) of its device time cut to
    its own ``it``, and, counted on the device in the step graph, the WHILE
    node's trips equal to ``ceil(it / 2)`` and the builds to ``1 +
-   accepted``; then the 129-frame world of
+   accepted``, each BA kernel's launches exact per solve; in a child
+   process the same steps run eagerly, their device time split into
+   detection, BM, PnP and BA (``utils.profiling.profile_step_parts``);
+   then the 129-frame world of
    phase 5 chunked by 64 with preload, graph against eager: every summary
    and the final state bitwise equal; and one profiled ``replay_chunk`` of
    64 frames (``utils.profiling.profile_chunk``): at most
@@ -392,6 +406,50 @@ GEOMETRY_TRAJ_TOL = 1e-4
 # H100; the CPU's run lies inside it): that part of the rule is printed, not
 # held (PERF.md §7)
 GEOMETRY_ATE_UNHELD = ("multisense",)
+# phase 3e: the BA kernels on the card against their plain versions on the
+# CPU (where the tests hold them to the JAX package), from the same inputs,
+# on the windows the bundle adjustments of steps BA_STEPS of phase 4's world
+# start from, each compacted and full: per-landmark outputs within BA_LM_TOL
+# (a build's: and BA_HUBER_ULPS of its Huber weights' amplification) of each
+# block's largest magnitude (a landmark's block: all that the kernel writes
+# for it, e.g. a build's v, g_l and W couplings, since g_l = -J^T r carries
+# the rounding of residuals that cancel to near zero; for a step, the new
+# position and the products its back-substitution sums), landmark-summed
+# ones within BA_SUM_RTOL of the largest magnitude of the sum and of the pose
+# blocks it is formed from (the pose gradient: of the Cauchy-Schwarz bound on
+# its terms), integers and flags equal; the whole solve through the kernels
+# against the same solve through the plain versions on the CPU: it and
+# accepted equal, poses within BA_POSE_TOL. The headline is the first window
+# at its own compaction choice.
+BA_STEPS = range(8, 12)
+# phases 4b and 4d: the kernels of the LM loop's WHILE body, which runs in
+# the solve's IF body. In 4b's fresh process torch.profiler names a nested
+# WHILE body's kernels on its first trip only (on an H100: 8 ba_step
+# launches in the trace of steps 8-11, 24 counted on the device, their LM
+# loops taking 5 + 2 + 3 + 2 trips), so the trace holds between one and all
+# of these launches; every other kernel's launches in the trace equal its
+# wrapper's count
+LOOP_KERNELS = ("ba_build_kernel", "ba_damp_reduce_kernel", "ba_step_kernel")
+BA_LM_TOL = 1e-6
+# a build's landmark blocks carry their observations' Huber weights, delta /
+# |r| where |r| > delta: a projection rounded a few ulps otherwise moves |r|
+# by that much, and the weight by (ulps * |uv| * 2^-24) / |r| relative; so a
+# landmark's build error may also reach BA_HUBER_ULPS of that amplification
+# (|uv| / |r| over its observations in the Huber tail)
+BA_HUBER_ULPS = 4
+BA_SUM_RTOL = 1e-5
+BA_POSE_TOL = 1e-5
+# f32 operations the BA kernels need (their bounds): per masked-in
+# observation of a build (Jacobians, Huber weight, lift, Gram rows and
+# sums), per active landmark of a damped reduction besides its Gram (damped
+# inverse, wlg V^-1), per Gram entry and landmark (three products, three
+# sums), per landmark of a step besides its costs (back-substitution,
+# predicted decrease), per masked-in observation of a cost
+BA_BUILD_OPS_PER_OBS = 540
+BA_DAMP_OPS_PER_LM = 60
+BA_GRAM_OPS = 6
+BA_STEP_OPS_PER_LM = 40
+BA_COST_OPS_PER_OBS = 45
 # phase 3b: the level pass with every other slot inactive (the tracker's
 # capacity at full width), at these of LK_SHAPES
 LK_INACTIVE_SHAPES = ("l0_56_n160", "l0_56_n448")
@@ -524,13 +582,16 @@ def _lk_passes(cfg, steps) -> int:
 
 def _wrappers() -> dict:
     """Each hand kernel's wrapper, by the name the kernels line gives it."""
+    from stereo_vo_tpu_torch.backend.schur import ba_build, ba_cost, ba_damp_reduce, ba_step
     from stereo_vo_tpu_torch.ops.lk import lk_level_pass
     from stereo_vo_tpu_torch.ops.regions import extract_regions
     from stereo_vo_tpu_torch.ops.shi_tomasi import greedy_nms
     from stereo_vo_tpu_torch.ops.stereo_bm import stereo_bm_at
 
     return {"lk_level_pass": lk_level_pass, "stereo_bm_at": stereo_bm_at,
-            "extract_regions": extract_regions, "greedy_nms": greedy_nms}
+            "extract_regions": extract_regions, "greedy_nms": greedy_nms,
+            "ba_build": ba_build, "ba_damp_reduce": ba_damp_reduce, "ba_step": ba_step,
+            "ba_cost": ba_cost}
 
 
 def _zero_launches() -> None:
@@ -542,18 +603,30 @@ def _launches() -> dict:
     return {name: wrapper.launches for name, wrapper in _wrappers().items()}
 
 
-def _check_launches(what, launches, lk_want, keyframes) -> None:
+def _check_launches(what, launches, lk_want, keyframes, steps=()) -> None:
     """One kernel launch per LK level pass, one sparse-BM and one greedy-NMS
-    launch per keyframe and no region extraction, exactly."""
+    launch per keyframe and no region extraction, exactly; and per bundle
+    adjustment (a keyframe among ``steps``, the frames after a run's
+    bootstrap) one ``ba_cost`` launch and ``1 + accepted`` ``ba_build``
+    launches, and as many ``ba_damp_reduce`` as ``ba_step`` launches, two a
+    trip of its LM loop (exactly per solve in phase 4d)."""
     lk, bm, er = launches["lk_level_pass"], launches["stereo_bm_at"], launches["extract_regions"]
     nms = launches["greedy_nms"]
+    solves = sum(bool(s["is_keyframe"]) for s in steps)
+    accepted = sum(int(s["ba_iterations"]) for s in steps if s["is_keyframe"])
+    ba = {k: launches[k] for k in ("ba_cost", "ba_build", "ba_damp_reduce", "ba_step")}
     _log(f"{what}: lk_level_pass launches {lk} for {lk_want} LK level passes, "
          f"stereo_bm_at launches {bm} and greedy_nms launches {nms} for {keyframes} keyframes, "
-         f"extract_regions launches {er}")
+         f"extract_regions launches {er}; {json.dumps(ba)} for {solves} solves with "
+         f"{accepted} accepted steps")
     _check(lk == lk_want > 0, f"{what}: {lk} lk_level_pass launches for {lk_want} passes")
     _check(bm == keyframes, f"{what}: {bm} stereo_bm_at launches for {keyframes} keyframes")
     _check(nms == keyframes, f"{what}: {nms} greedy_nms launches for {keyframes} keyframes")
     _check(er == 0, f"{what}: {er} extract_regions launches")
+    _check(ba["ba_cost"] == solves and ba["ba_build"] == solves + accepted
+           and ba["ba_damp_reduce"] == ba["ba_step"] and ba["ba_step"] % 2 == 0
+           and ba["ba_step"] >= 2 * solves,
+           f"{what}: BA launches {ba} for {solves} solves with {accepted} accepted steps")
 
 
 def _bound_ms(nbytes: float, flops: float):
@@ -1182,6 +1255,289 @@ def _nms_check(torch, cfg, world, photo, dev) -> dict:
     return {**head, "max_abs_err": max_err}
 
 
+def _block_err(torch, *pairs, scale=None, allow=None) -> float:
+    """The largest error of kernel outputs against their plain versions
+    ``(got, want)``, each output's first dimension a landmark (or a pose),
+    in units of the largest magnitude of that landmark's plain outputs
+    together (or of ``scale``, one per landmark), and less ``allow`` (one
+    per landmark, what its own arithmetic amplifies) where given; a
+    landmark whose scale is zero must match exactly."""
+    def rows(t):
+        return t.double().flatten(1) if t.dim() > 1 else t.double()[:, None]
+
+    err = torch.stack([(rows(g) - rows(w)).abs().amax(1) for g, w in pairs]).amax(0)
+    if scale is None:
+        scale = torch.stack([rows(w).abs().amax(1) for _, w in pairs]).amax(0)
+    _check(bool(torch.all(torch.isfinite(err))), "finite kernel outputs")
+    exact = scale == 0
+    _check(bool(torch.all(err[exact] == 0)), "zero blocks exactly zero")
+    rel = err[~exact] / scale[~exact]
+    if allow is not None:
+        rel = rel - allow.double()[~exact]
+    return float(rel.max()) if bool((~exact).any()) else 0.0
+
+
+def _huber_amp(torch, prob, cam, bcfg):
+    """Per landmark, the largest ``|uv| / |r|`` over its masked-in
+    observations whose residual lies in the Huber tail (``|r| > delta``),
+    and 0 without one: how much a rounding of the projection moves the
+    landmark's Huber weights, relatively (``BA_HUBER_ULPS``)."""
+    from stereo_vo_tpu_torch.backend import schur
+    from stereo_vo_tpu_torch.backend.residuals import reprojection_residual
+
+    pose_b, pts, mask = schur._obs_mask(prob.poses, prob.lm_pos, prob, bcfg.min_depth)
+    r = reprojection_residual(pose_b, pts, prob.obs_uv, cam).double()
+    norm = r.norm(dim=-1)
+    uv = (r + prob.obs_uv.double()).abs().amax(-1)
+    tail = mask & (norm > bcfg.huber_delta_px) if bcfg.huber_delta_px > 0 else mask & False
+    return torch.where(tail, uv / norm.clamp(min=1e-30), 0.0).amax(-1)
+
+
+def _step_scale(torch, sys, v_inv, delta, corr, lm_pos):
+    """Per landmark, the largest magnitude of a step's landmark block: its
+    position, and the products ``v_inv[i, j] * (g_l - wl^T delta_p)[j]``
+    its back-substitution sums (a far landmark's ``v_inv`` is large, and
+    multiplies the rounding of the difference that it sums)."""
+    w = sys.wl.shape[1]
+    d = (delta if corr is None else delta + corr).double().reshape(w, 6)
+    d = d * sys.free.double()[:, None]
+    gw = sys.g_l.double() - torch.sum(sys.wl.double() * d[None, :, :, None], dim=(1, 2))
+    terms = (v_inv.double().abs() * gw.abs()[:, None, :]).flatten(1).amax(1)
+    return torch.maximum(lm_pos.double().abs().amax(1), terms)
+
+
+def _grad_err(got, want, u_blocks, cost) -> float:
+    """The largest error of a summed pose gradient ``g_p = -sum J^T r``
+    against its plain version, each entry in units of the Cauchy-Schwarz
+    bound on the sum of its terms' magnitudes, ``sqrt(U_aa * sum w r^2)``
+    with ``sum w r^2 <= 2 * cost`` (a gradient near an optimum sums terms
+    that cancel)."""
+    scale = (u_blocks.double().diagonal(dim1=-2, dim2=-1) * 2.0 * float(cost)).sqrt()
+    return float(((got.double() - want.double()).abs() / scale.clamp(min=1e-30)).max())
+
+
+def _sum_err(got, want, *formed_from) -> float:
+    """The largest error of a landmark-summed ``got`` against ``want`` in
+    units of the largest magnitude of ``want`` and of what it is formed
+    from."""
+    scale = max(float(t.double().abs().max()) for t in (want, *formed_from))
+    return float((got.double() - want.double()).abs().max()) / max(scale, 1e-30)
+
+
+def _moved(torch, tree, device):
+    """A tree of tensors (``engine/graphs.py``'s trees) on ``device``, each
+    contiguous."""
+    from stereo_vo_tpu_torch.engine.graphs import flatten, unflatten
+
+    leaves, spec = flatten(tree)
+    return unflatten(spec, iter([t.to(device).contiguous() for t in leaves]))
+
+
+def _ba_problems(cfg, windows):
+    """For each recorded ``(window, compact)``, compacted and full, the
+    landmark-major problem the LM loop of ``bundle_adjust`` starts from,
+    its damping, and that solve's results (through the kernels):
+    ``[(label, prob, init_lam, result), ...]``, the first the headline."""
+    from stereo_vo_tpu_torch.backend import schur
+
+    out, run = [], schur._lm_run
+    for k, (window, compact) in enumerate(windows):
+        for c in (compact, not compact):
+            seen = []
+
+            def recording(prob, cam, bcfg, init_lam=None, group=None):
+                result = run(prob, cam, bcfg, init_lam, group)
+                seen.append((prob, init_lam, result))
+                return result
+
+            schur._lm_run = recording
+            try:
+                schur.bundle_adjust(window, cfg.camera, cfg.backend, compact=c)
+            finally:
+                schur._lm_run = run
+            label = f"step {BA_STEPS[k]} {'compacted' if c else 'full'}"
+            out.append((label, *seen[0]))
+    return out
+
+
+def _ba_check(torch, cfg, frames, dev) -> dict:
+    """Phase 3e: ``_ba_hold`` on the windows the bundle adjustments of steps
+    ``BA_STEPS`` of phase 4's world start from, each compacted and full; at
+    the headline each kernel's call timed (CUDA events) beside its plain
+    version and its device time per launch (``torch.profiler``) and bound,
+    ``ba_damp_reduce`` beside the one ``einsum`` of its Gram. Returns each
+    kernel's record."""
+    from stereo_vo_tpu_torch.backend import schur
+    from stereo_vo_tpu_torch.utils.profiling import recorded_solves
+
+    windows = recorded_solves(cfg, frames, dev, BA_STEPS)
+    _check(len(windows) == len(BA_STEPS), f"{len(windows)} recorded solves")
+    records, errs = {}, {}
+    for n, (label, prob, init_lam, got) in enumerate(_ba_problems(cfg, windows)):
+        case_errs, timing_in = _ba_hold(torch, cfg, label, prob, init_lam, got, dev)
+        for kernel, err in case_errs.items():
+            errs[kernel] = max(errs.get(kernel, 0.0), err)
+        if n == 0:
+            records = _ba_times(torch, schur, prob, *timing_in, cfg.camera, cfg.backend)
+    for kernel, rec in records.items():
+        rec["max_abs_err"] = errs[kernel]
+    return records
+
+
+def _ba_hold(torch, cfg, label, prob, init_lam, got, dev):
+    """Each BA kernel of ``csrc/ba_lm.cu`` on the card against its plain
+    version (``backend/schur.py``) on the CPU, from the same inputs, at one
+    landmark-major problem: ``ba_cost`` against ``_lm_major_cost_ref`` and
+    ``ba_build`` against ``_build_system`` at its iterate,
+    ``ba_damp_reduce`` against ``_reduced_system`` on that system at its
+    damping, ``ba_step`` against ``_ba_step_ref`` from the plain reduced
+    solve (the ``BA_*`` tolerances); and ``got``, the LM loop's results
+    through the kernels, against the same loop through the plain versions:
+    ``it`` and ``accepted`` equal, poses within ``BA_POSE_TOL``. Returns the
+    largest absolute error of each kernel's outputs and the inputs its times
+    are taken on."""
+    from stereo_vo_tpu_torch.backend import schur
+
+    bcfg, cam = cfg.backend, cfg.camera
+    cpu = torch.device("cpu")
+    l, w = prob.obs_valid.shape
+    lam = (torch.full((), bcfg.init_damping, device=dev) if init_lam is None else
+           torch.clamp(torch.as_tensor(init_lam, dtype=torch.float32, device=dev),
+                       bcfg.min_damping, bcfg.max_damping))
+    # the plain versions on the CPU, where the port's tests hold them to the
+    # JAX package; the kernels on the card from the same inputs
+    prob_c, lam_c = _moved(torch, prob, cpu), lam.cpu()
+    args_c = (prob_c.poses, prob_c.lm_pos, prob_c, cam, bcfg.min_depth, bcfg.huber_delta_px)
+    cost_p = schur._lm_major_cost_ref(*args_c)
+    sys_p = _moved(torch, schur._build_system(*args_c[:4], bcfg), cpu)
+    damp_p = schur._reduced_system(sys_p, lam_c)
+    delta, corr = schur._reduced_solve(damp_p[0], damp_p[1], None, bcfg)
+    zero_i = torch.zeros((), dtype=torch.int32)
+    carry_p = schur._LMCarry(prob_c.poses, prob_c.lm_pos, sys_p, lam_c, torch.full((), 2.0),
+                             cost_p, zero_i, zero_i, torch.zeros(()),
+                             torch.zeros((), dtype=torch.bool))
+    step_p = schur._ba_step_ref(carry_p, damp_p[2], delta, corr, prob_c, cam, bcfg)
+    cost_k = schur.ba_cost(prob.poses, prob.lm_pos, prob, cam, bcfg.min_depth,
+                           bcfg.huber_delta_px)
+    sys_k = schur.ba_build(prob.poses, prob.lm_pos, prob, cam, bcfg)
+    sys_in = _moved(torch, sys_p, dev)
+    damp_k = schur.ba_damp_reduce(sys_in, lam, bcfg)
+    carry_k = _moved(torch, carry_p, dev)
+    step_in = _moved(torch, (damp_p[2], delta, corr), dev)
+    step_k = schur.ba_step(carry_k, *step_in, prob, cam, bcfg)
+    # the same torch ops on the card, for the record: their projections round
+    # otherwise than the CPU's (BA_HUBER_ULPS)
+    sys_t = schur._build_system(prob.poses, prob.lm_pos, prob, cam, bcfg)
+    sys_k, damp_k, step_k, sys_t, cost_k = _moved(torch, (sys_k, damp_k, step_k, sys_t,
+                                                           cost_k), cpu)
+    e = {
+        "ba_cost": _sum_err(cost_k, cost_p),
+        "ba_build": _block_err(torch, (sys_k.v, sys_p.v), (sys_k.g_l, sys_p.g_l),
+                               (sys_k.wl, sys_p.wl),
+                               allow=BA_HUBER_ULPS * 2.0 ** -24 * _huber_amp(torch, prob_c, cam,
+                                                                            bcfg)),
+        "ba_build_sums": max(_sum_err(sys_k.u_blocks, sys_p.u_blocks),
+                             _grad_err(sys_k.g_p, sys_p.g_p, sys_p.u_blocks, cost_p)),
+        "ba_damp_reduce": _block_err(torch, (damp_k[2], damp_p[2])),
+        "ba_damp_reduce_sums": max(_sum_err(damp_k[0], damp_p[0], sys_p.u_blocks),
+                                   _sum_err(damp_k[1], damp_p[1], sys_p.g_p)),
+        "ba_step": max(_block_err(torch, (step_k.lm_pos, step_p.lm_pos),
+                                  scale=_step_scale(torch, sys_p, damp_p[2], delta, corr,
+                                                    step_p.lm_pos)),
+                       _block_err(torch, (step_k.poses, step_p.poses))),
+        "ba_step_sums": max(_sum_err(step_k.cost, step_p.cost), _sum_err(step_k.lam, step_p.lam)),
+    }
+    torch_on_card = {
+        "build": _block_err(torch, (sys_t.v, sys_p.v), (sys_t.g_l, sys_p.g_l),
+                            (sys_t.wl, sys_p.wl)),
+        "build_sums": max(_sum_err(sys_t.u_blocks, sys_p.u_blocks),
+                          _grad_err(sys_t.g_p, sys_p.g_p, sys_p.u_blocks, cost_p))}
+    same = {"lm_active": torch.equal(sys_k.lm_active, sys_p.lm_active),
+            "free": torch.equal(sys_k.free, sys_p.free),
+            "rhs_copy": torch.equal(damp_k[3], damp_k[1]),
+            **{f: bool(torch.equal(getattr(step_k, f), getattr(step_p, f)))
+               for f in ("ok", "done", "accepted", "it")}}
+    plain = schur._lm_run(prob_c, cam, bcfg, None if init_lam is None else lam_c)
+    stops = {"it": (int(got[7]), int(plain[7])), "accepted": (int(got[4]), int(plain[4]))}
+    pose_err = _abs_err(torch, got[0].cpu(), plain[0])
+    _log(f"check BA kernels {label}: L {l} W {w}, errors against the plain versions on the "
+         f"CPU {json.dumps(e)} (the torch ops of _build_system on the card against them: "
+         f"{json.dumps(torch_on_card)}), equal {json.dumps(same)}, the LM loop's (it, "
+         f"accepted) kernels vs plain {json.dumps(stops)}, poses {pose_err:.3g}")
+    for kernel in ("ba_build", "ba_damp_reduce", "ba_step"):
+        _check(e[kernel] <= BA_LM_TOL, f"{label}: {kernel} per landmark {e[kernel]:.3g}")
+    for kernel in ("ba_build", "ba_damp_reduce", "ba_step"):
+        _check(e[kernel + "_sums"] <= BA_SUM_RTOL,
+               f"{label}: {kernel} summed {e[kernel + '_sums']:.3g}")
+    _check(e["ba_cost"] <= BA_SUM_RTOL, f"{label}: ba_cost {e['ba_cost']:.3g}")
+    _check(all(same.values()), f"{label}: equal flags and counts {same}")
+    _check(stops["it"][0] == stops["it"][1] and stops["accepted"][0] == stops["accepted"][1],
+           f"{label}: the LM loop stops as the plain one: {stops}")
+    _check(pose_err <= BA_POSE_TOL, f"{label}: poses within {BA_POSE_TOL}: {pose_err}")
+    pairs = {"ba_cost": [(cost_k, cost_p)], "ba_build": list(zip(sys_k, sys_p)),
+             "ba_damp_reduce": list(zip(damp_k[:3], damp_p)), "ba_step": list(zip(step_k, step_p))}
+    abs_errs = {k: max(_abs_err(torch, g, w) for g, w in outs) for k, outs in pairs.items()}
+    return abs_errs, (lam, sys_in, carry_k, step_in)
+
+
+def _ba_times(torch, schur, prob, lam, sys, carry, step_in, cam, bcfg) -> dict:
+    """Phase 3e's times at the headline: each BA kernel's call and its
+    plain version's (CUDA events), its device time per launch
+    (``torch.profiler``) and its bound from this problem's bytes and
+    operations; ``ba_damp_reduce`` also beside its Gram as one ``einsum``
+    (cuBLAS)."""
+    l, w = prob.obs_valid.shape
+    n1 = 6 * w + 1
+    v_inv, delta, corr = step_in
+    mask = schur._obs_mask(prob.poses, prob.lm_pos, prob, bcfg.min_depth)[2]
+    n_obs, n_active = int(mask.sum()), int(sys.lm_active.sum())
+
+    def nbytes(*ts):
+        return sum(t.numel() * t.element_size() for t in ts if t is not None)
+
+    problem_bytes = nbytes(prob.obs_uv, prob.obs_valid, prob.pose_valid, prob.lm_valid,
+                           prob.lm_prior, prob.lm_prior_w)
+    args = (prob.poses, prob.lm_pos, prob, cam, bcfg.min_depth, bcfg.huber_delta_px)
+    wlg = torch.cat([sys.wl.reshape(l, 6 * w, 3), sys.g_l[:, None, :]], dim=1)
+    a = torch.sum(wlg[:, :, :, None] * v_inv[:, None, :, :], dim=2)
+    cases = {
+        "ba_build": (lambda: schur.ba_build(prob.poses, prob.lm_pos, prob, cam, bcfg),
+                     lambda: schur._build_system(prob.poses, prob.lm_pos, prob, cam, bcfg),
+                     None,
+                     problem_bytes + nbytes(prob.poses, prob.lm_pos, *sys),
+                     BA_BUILD_OPS_PER_OBS * n_obs),
+        "ba_damp_reduce": (lambda: schur.ba_damp_reduce(sys, lam, bcfg),
+                           lambda: schur._reduced_system(sys, lam),
+                           lambda: torch.einsum("lic,ljc->ij", a, wlg),
+                           nbytes(*sys, lam, v_inv) + 4 * (36 * w * w + 12 * w),
+                           n_active * (BA_DAMP_OPS_PER_LM + BA_GRAM_OPS * n1 * n1)),
+        "ba_step": (lambda: schur.ba_step(carry, v_inv, delta, corr, prob, cam, bcfg),
+                    lambda: schur._ba_step_ref(carry, v_inv, delta, corr, prob, cam, bcfg),
+                    None,
+                    problem_bytes + nbytes(prob.poses, prob.lm_pos, *sys, v_inv, delta, corr)
+                    + nbytes(prob.poses, prob.lm_pos) + 4 * 10,
+                    l * BA_STEP_OPS_PER_LM + BA_COST_OPS_PER_OBS * n_obs),
+        "ba_cost": (lambda: schur.ba_cost(*args), lambda: schur._lm_major_cost_ref(*args), None,
+                    problem_bytes + nbytes(prob.poses, prob.lm_pos) + 4,
+                    BA_COST_OPS_PER_OBS * n_obs),
+    }
+    out = {}
+    for kernel, (call, plain, library, nb, ops) in cases.items():
+        k_ms = _time_ms(torch, call)
+        dev_us = _device_us(torch, call, kernel + "_kernel", getattr(schur, kernel))
+        p_ms = _time_ms(torch, plain, samples=5, inner=2)
+        lib_ms = None if library is None else _time_ms(torch, library)
+        bound, bound_by = _bound_ms(nb, ops)
+        _log(f"time {kernel} (L {l}, W {w}, {n_obs} observations, {n_active} active "
+             f"landmarks): call {k_ms * 1e3:.2f} us ({dev_us:.2f} us of it on the device), "
+             f"plain {p_ms * 1e3:.1f} us, library "
+             f"{'none' if lib_ms is None else f'{lib_ms * 1e3:.2f} us'}, bound "
+             f"{bound * 1e3:.4f} us ({bound_by})")
+        out[kernel] = {"ms": k_ms, "device_ms": dev_us / 1e3, "plain_ms": p_ms,
+                       "bound_ms": bound, "bound_by": bound_by, "library_ms": lib_ms}
+    return out
+
+
 def _detect_kernels(torch, cfg, img, dev) -> dict:
     """Phase 4b: the device kernels of one greedy ``detect_corners`` on
     ``img`` (the fixpoint, cap and pack in one launch) against the same
@@ -1228,6 +1584,16 @@ def _detect_kernels(torch, cfg, img, dev) -> dict:
     _check(out["fused"] < out["separate"],
            f"detect_corners: fewer device kernels with the pack in the kernel: {out}")
     return out
+
+
+def _check_traced(what, traced, counted) -> None:
+    """Each hand kernel's launches in a profiled stretch of the step graph
+    equal its wrapper's count, read on the device; for ``LOOP_KERNELS``,
+    between 1 and that count when it is not 0."""
+    for kernel, n in counted.items():
+        ok = (0 < traced[kernel] <= n if kernel in LOOP_KERNELS and n > 0
+              else traced[kernel] == n)
+        _check(ok, f"{what}: {kernel}: {n} counted launches, {traced[kernel]} in the trace")
 
 
 def _check_streamed_steps(what, steps) -> None:
@@ -1331,17 +1697,23 @@ def _lm_stops(torch, cfg, frames, dev, windows) -> dict:
         if i >= first - 1:
             engine.flush_launches()
             program, = engine.programs.values()
-            runs.append(dict(program.runs))
-    for row, before, after in zip(rows, runs, runs[1:]):
+            runs.append((dict(program.runs), _launches()))
+    for row, (before, k_before), (after, k_after) in zip(rows, runs, runs[1:]):
         def ran(key):
             return after.get(key, 0) - before.get(key, 0)
 
-        row.update(trips=ran("while:lm_pair"), builds=ran("if:_solve") + ran("if:rebuild"))
+        row.update(trips=ran("while:lm_pair"), builds=ran("if:_solve") + ran("if:rebuild"),
+                   ba_launches={k: k_after[k] - k_before[k]
+                                for k in ("ba_cost", "ba_build", "ba_damp_reduce", "ba_step")})
     _log("LM loops of steps 8-11: " + json.dumps(rows))
     for k, row in enumerate(rows):
         _check(row["trips"] == row["trips_want"] and row["builds"] == row["builds_want"],
                f"step {first + k}: {row['trips']} trips (ceil(it / 2) = {row['trips_want']}), "
                f"{row['builds']} builds (1 + accepted = {row['builds_want']})")
+        want = {"ba_cost": 1, "ba_build": row["builds_want"],
+                "ba_damp_reduce": 2 * row["trips_want"], "ba_step": 2 * row["trips_want"]}
+        _check(row["ba_launches"] == want,
+               f"step {first + k}: BA kernel launches {row['ba_launches']}, want {want}")
         slack = max(SOLVE_CUT_RTOL * row["device_ms_cut_to_it"], SOLVE_CUT_ATOL_MS)
         _check(abs(row["device_ms"] - row["device_ms_cut_to_it"]) <= slack,
                f"step {first + k}: the solve takes {row['device_ms']:.3f} device ms, cut to "
@@ -1374,7 +1746,7 @@ def _graph_phase(torch, cfg, frames, dev) -> dict:
     from stereo_vo_tpu_torch.engine.graphs import flatten
     from stereo_vo_tpu_torch.engine.step import VOEngine
     from stereo_vo_tpu_torch.eval.parity import run_summaries
-    from stereo_vo_tpu_torch.utils.profiling import PORT_KERNELS, _trace_counts, profile_chunk
+    from stereo_vo_tpu_torch.utils.profiling import _trace_counts, profile_chunk
 
     def same_state(a, b):
         return all(bool(torch.equal(x, y)) for x, y in zip(flatten(a)[0], flatten(b)[0]))
@@ -1408,10 +1780,7 @@ def _graph_phase(torch, cfg, frames, dev) -> dict:
            and ("else", "keep", 3) in bodies,
            f"a WHILE node in the keyframe solve's body, IF pairs in it: {bodies}")
     _check_streamed_steps("graph run, steps 8-19", trace["steps"])
-    for kernel in PORT_KERNELS:
-        _check(trace["kernel_launches"][kernel] == counted[kernel],
-               f"{kernel}: {counted[kernel]} counted launches, "
-               f"{trace['kernel_launches'][kernel]} in the trace")
+    _check_traced("graph run, steps 8-19", trace["kernel_launches"], counted)
     _check(counted["stereo_bm_at_kernel"] == counted["greedy_nms_kernel"] == sum(kf) > 0,
            f"one BM and one NMS launch per profiled keyframe: {counted}")
     _check(np.isfinite(g_rows.numpy()).all(), "finite summaries")
@@ -1485,8 +1854,8 @@ def _geometry_phase(torch, dev) -> dict:
         same = int((got == run_summaries(eager)).all(axis=1).sum())
         stats = run.frame_stats
         kf = np.array([st["is_keyframe"] for st in stats])
-        _check_launches(what, launches, _lk_passes(cfg, stats[int(np.argmax(kf)) + 1:]),
-                        int(kf.sum()))
+        steps = stats[int(np.argmax(kf)) + 1:]
+        _check_launches(what, launches, _lk_passes(cfg, steps), int(kf.sum()), steps)
         programs = {p.name: p.replays for p in run.engine.programs.values()}
         if "spread_summaries" in ref:
             report = divergence_hold(got, ref["summaries"], ref["spread_summaries"],
@@ -1663,7 +2032,7 @@ def _check_replay(cfg, run, gt_poses, out_dir, wall_s, launches) -> None:
     _check(ate_kf["rmse"] < REPLAY_ATE_BOUND_M, f"keyframe ATE {ate_kf}")
     _check(len(rows) == N_REPLAY and [r["frame"] for r in rows] == list(range(N_REPLAY)),
            f"{len(rows)} metrics rows")
-    _check_launches("chunked replay", launches, lk_passes, int(kf.sum()))
+    _check_launches("chunked replay", launches, lk_passes, int(kf.sum()), steps)
     _check(os.path.exists(os.path.join(out_dir, "checkpoint.npz")), "no checkpoint written")
     _hold_to_reference("chunked replay", run, "kitti00_w129_c64.npz", REPLAY_TRAJ_TOL_CARD)
 
@@ -1703,7 +2072,7 @@ def _photo_world_phase(cfg, dev) -> dict:
         what = f"photo world seed {seed}"
         _log(f"{what}: {len(frames)} frames rendered in {render_s:.2f} s, run in {wall_s:.2f} s "
              f"(incl. preload upload), {run.frames_per_sec:.3f} frames/s after the first chunk")
-        _check_launches(what, counts, _lk_passes(cfg, steps), int(kf.sum()))
+        _check_launches(what, counts, _lk_passes(cfg, steps), int(kf.sum()), steps)
         got = run_summaries(run)
         _check(got.shape == ref["summaries"].shape and bool(np.isfinite(got).all()),
                f"{what}: summaries {got.shape}")
@@ -1815,6 +2184,16 @@ def _graph_phase_child() -> None:
     print(json.dumps(_graph_phase(torch, cfg, list(_main_world(cfg)), dev)), flush=True)
 
 
+def _step_parts_child() -> None:
+    """Phase 4d's split of a keyframe step's device time
+    (``utils.profiling.profile_step_parts``: the eager step, every kernel in
+    the trace), printed as one JSON line."""
+    from stereo_vo_tpu_torch.utils.profiling import profile_step_parts
+
+    torch, cfg, dev = _child_setup()
+    print(json.dumps(profile_step_parts(cfg, list(_main_world(cfg)), dev)), flush=True)
+
+
 def _profile_replay_child() -> None:
     """Phase 6b's profile (``utils.profiling.profile_replay`` on the
     129-frame world), printed as one JSON line."""
@@ -1870,7 +2249,7 @@ def _offline_phases(cfg, dev) -> dict:
              f"max |pose - straight| first {first_err:.3g} all {all_err:.3g}, "
              f"keyframe flags equal on {kf_same} of {len(run6.frame_stats)}")
         _check_launches("resume", phase_launches["resume"], _lk_passes(cfg, run6.frame_stats),
-                        sum(st["is_keyframe"] for st in run6.frame_stats))
+                        sum(st["is_keyframe"] for st in run6.frame_stats), run6.frame_stats)
         _check(idx == list(range(CKPT_EVERY, N_REPLAY)), f"resumed frames {idx[:3]}..{idx[-3:]}")
         _check(bool(np.all(np.isfinite(run6.poses))), "non-finite resumed pose")
         _check(first_err < RESUME_TOL, f"first resumed pose differs by {first_err}")
@@ -2125,7 +2504,7 @@ def main() -> int:
     # ---- 2. build
     _phase("2")
     _build_all(cuda_build, ("extract_regions", "lk_level", "stereo_bm_at", "greedy_nms",
-                            "graph_cond"))
+                            "ba_lm", "graph_cond"))
 
     # ---- 3. the region-extraction kernel against its plain version
     _phase("3")
@@ -2159,6 +2538,10 @@ def main() -> int:
     photo0 = photo_world.render(0)[0]
     nms_record = _nms_check(torch, cfg, world, photo0, dev)
 
+    # ---- 3e. the bundle adjustment's kernels against their plain versions
+    _phase("3e")
+    ba_records = _ba_check(torch, cfg, world_frames, dev)
+
     # ---- 4. the main path
     _phase("4")
     _zero_launches()
@@ -2188,7 +2571,7 @@ def main() -> int:
     tracked = [s["num_tracked"] for s in steps]
     _check(statistics.median(tracked) > 50, f"median tracked count of {tracked}")
     _check(all(s["pnp_ok"] for s in stats), "PnP failed on an accepted frame")
-    _check_launches("main path", launches, lk_passes, int(kf.sum()))
+    _check_launches("main path", launches, lk_passes, int(kf.sum()), steps)
     _check(ate_kf["rmse"] < ATE_BOUND_M, f"keyframe ATE {ate_kf}")
     phase_launches = {"main_path": launches}
 
@@ -2209,9 +2592,7 @@ def main() -> int:
     _check(prof["keyframes_profiled"] > 0 and bm_traced == prof["keyframes_profiled"],
            f"the profiled keyframe steps ran the BM kernel once each: {bm_traced}")
     _check(prof["kernel_launches"]["extract_regions_kernel"] == 0, "no region extraction")
-    _check(prof["kernel_launches"] == prof["wrapper_launches"],
-           f"the wrappers' launches {prof['wrapper_launches']} are the trace's "
-           f"{prof['kernel_launches']}")
+    _check_traced("keyframe steps 8-11", prof["kernel_launches"], prof["wrapper_launches"])
     _check_streamed_steps("keyframe steps 8-11", prof["steps"])
 
     # ---- 4c. phase 4's run and the PnP draw held to the JAX package's, and
@@ -2224,6 +2605,12 @@ def main() -> int:
     # ---- 4d. the step graph against the same step run eagerly
     _phase("4d")
     _in_child("_graph_phase_child")
+    parts = _in_child("_step_parts_child")
+    _log("keyframe steps 8-11 of phase 4's world run eagerly, device ms and kernels by part: "
+         + json.dumps(parts))
+    _check(parts["keyframe_steps"] > 0 and all(parts[p]["kernels"] > 0
+                                               for p in ("detect", "bm", "pnp", "ba")),
+           f"every part of a keyframe step ran kernels: {parts}")
 
     phase_launches.update(_offline_phases(cfg, dev))
 
@@ -2277,7 +2664,20 @@ def main() -> int:
         "launches": total("greedy_nms"),
         **nms_record,
         "library_ms": None,
-    }]}), flush=True)
+    }] + [{
+        "name": kernel,
+        "route": "cuda",
+        "source": "stereo_vo_tpu_torch/csrc/ba_lm.cu",
+        "replaces": replaces,
+        "launches": total(kernel),
+        **ba_records[kernel],
+    } for kernel, replaces in (
+        ("ba_build", "stereo_vo_tpu/backend/schur.py:438 _build_system (XLA fusions, no Pallas)"),
+        ("ba_damp_reduce", "stereo_vo_tpu/backend/schur.py:519 _damp_reduce (XLA fusions)"),
+        ("ba_step", "stereo_vo_tpu/backend/schur.py:596 back-substitution, :383 cost, :661 "
+                    "body update (XLA fusions)"),
+        ("ba_cost", "stereo_vo_tpu/backend/schur.py:383 _lm_major_cost (XLA fusions)"),
+    )]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",
         "kind": torch.cuda.get_device_name(0),

@@ -17,9 +17,11 @@ profiled, 49-80 timed: the calls, wall and device ms of each cruise and
 keyframe step), ``profile_chunk`` (frames 65-128 as one profiled
 ``replay_chunk`` call: the syncs and launches inside it) and, on the
 20-frame world of phase 4 (every frame a keyframe), ``profile_keyframes``
-(steps 8-11 profiled) and ``profile_solves`` (the bundle adjustments of
+(steps 8-11 profiled), ``profile_solves`` (the bundle adjustments of
 steps 8-11, each from its window replayed as a graph of its own: its LM
-loop's stop and device ms); and one ``stereo_bm_at`` call at the 748-slot
+loop's stop, device ms and device kernels, and per LM body) and
+``profile_step_parts`` (steps 8-11 run eagerly, their device ms and kernels
+split into detection, BM, PnP and BA); and one ``stereo_bm_at`` call at the 748-slot
 keyframe input of ``keyframe_bm_input`` (CUDA events, median of 20 samples
 of 10 calls), all through that tree's public functions. It prints one JSON
 line. Each tree builds its own kernels at first use. Exits non-zero without
@@ -76,6 +78,7 @@ def _turn(tree: str) -> None:
                                              yaw_rate=0.003))
     keyframe = profiling.profile_keyframes(cfg, kf_frames, dev)
     solves = profiling.profile_solves(cfg, kf_frames, dev)
+    parts = profiling.profile_step_parts(cfg, kf_frames, dev)
     left, right, xy, valid = profiling.keyframe_bm_input(cfg, kf_frames[0], kf_frames[1], dev)
     fc = cfg.frontend
     bm_ms = smoke._time_ms(torch, lambda: stereo_bm_at(
@@ -86,7 +89,7 @@ def _turn(tree: str) -> None:
     print(json.dumps({"package": os.path.dirname(stereo_vo_tpu_torch.__file__),
                       "chunked_frames_per_s": run.frames_per_sec,
                       "photo_s11_chunked_frames_per_s": photo_run.frames_per_sec, **row,
-                      "chunk": chunk, "keyframe": keyframe, "solves": solves,
+                      "chunk": chunk, "keyframe": keyframe, "solves": solves, "parts": parts,
                       "stereo_bm_at_748_ms": bm_ms, "stereo_bm_at_748_valid": int(valid.sum())}),
           flush=True)
 

@@ -20,9 +20,18 @@ The LM loop is the reference's ``while_loop`` over pairs of bodies, with its
 conditional rebuild (``lm_loop``): ``engine/graphs.py``'s ``while_loop`` and
 ``cond``, which read their predicates on the host outside a capture and are
 a WHILE node and IF pairs in the card's step graph. Inside a body every
-other decision is a ``torch.where`` on the device. The choice between the
-compacted and the full solve is the caller's (``bundle_adjust(compact=...)``)
-or one host read.
+other decision is taken on the device. The choice between the compacted and
+the full solve is the caller's (``bundle_adjust(compact=...)``) or one host
+read.
+
+On the card a body is the hand kernels of ``csrc/ba_lm.cu`` around the
+reduced LU solve: ``ba_damp_reduce`` (the damped Schur reduction to ``s``
+and ``rhs``), the LU's library calls, ``ba_step`` (back-substitution,
+retraction, the candidate's cost and the accept / damping update), and
+``ba_build`` (the λ-free system) in the rebuild; ``ba_cost`` gives the
+initial cost. Each wrapper takes its plain version, the torch functions of
+this module, for CPU tensors: ``_build_system``, ``_reduced_system``,
+``_ba_step_ref`` and ``_lm_major_cost_ref``.
 
 Landmark sharding (``parallel/sharded_ba.py``): given a process group, each
 rank holds a contiguous block of landmarks and ``lm_loop`` all-reduces (sum)
@@ -35,14 +44,15 @@ Without a group nothing changes.
 
 from __future__ import annotations
 
-from typing import NamedTuple, Tuple
+import ctypes
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 import torch.distributed as dist
 
 from stereo_vo_tpu_torch.core.camera import CameraInfo
 from stereo_vo_tpu_torch.core.config import BackendConfig
-from stereo_vo_tpu_torch.core.f32 import sqrt_f32
+from stereo_vo_tpu_torch.core.f32 import fma_f32, sqrt_f32
 from stereo_vo_tpu_torch.core.geometry import (
     pose_q,
     pose_retract,
@@ -154,8 +164,10 @@ def _all_reduce(t: torch.Tensor, group) -> torch.Tensor:
     return t
 
 
-def _lm_major_cost(poses, lm_pos, prob: LandmarkMajorProblem, cam, min_depth, huber_delta,
-                   group=None):
+def _lm_major_cost_ref(poses, lm_pos, prob: LandmarkMajorProblem, cam, min_depth, huber_delta,
+                       group=None):
+    """The Huber cost plus the stereo prior at an iterate: the plain version
+    of ``ba_cost``."""
     pose_b, pts, mask = _obs_mask(poses, lm_pos, prob, min_depth)
     r = reprojection_residual(pose_b, pts, prob.obs_uv, cam)
     r = torch.where(mask[..., None], r, 0.0)
@@ -260,7 +272,11 @@ def reduced_camera_condition(prob: LandmarkMajorProblem, cam, cfg, lam: float = 
     """2-norm condition number of the damped, gauge-fixed reduced camera
     system ``[6W, 6W]`` that the solver sees at ``prob``'s iterate: an f32
     solve loses about ``log10(cond)`` digits, so a large value asks for
-    ``reduced_solve_refine`` or ``reduced_solve_f64``."""
+    ``reduced_solve_refine`` or ``reduced_solve_f64``.
+
+    A diagnostic, called once and outside the step: it runs the plain
+    versions on every device, since it wants ``_damp_reduce``'s ``s`` without
+    the solve's ``1e-10 I`` that ``ba_damp_reduce`` adds."""
     dtype = prob.poses.dtype
     sys = _build_system(prob.poses, prob.lm_pos, prob, cam, cfg)
     s = _damp_reduce(sys, torch.tensor(lam, dtype=dtype, device=prob.poses.device))[0]
@@ -269,28 +285,49 @@ def reduced_camera_condition(prob: LandmarkMajorProblem, cam, cfg, lam: float = 
     return sv[0] / torch.clamp(sv[-1], min=torch.finfo(dtype).tiny)
 
 
-def _solve_from_system(sys: BASystem, poses, lm_pos, lam, cfg, group=None):
-    """Damped solve + back-substitution; returns ``(poses', lm_pos', pred)``
-    with ``pred`` the decrease predicted by the damped quadratic model."""
-    dtype, dev = poses.dtype, poses.device
-    w = poses.shape[0]
-    s, rhs, v_inv, dp_diag, dl_diag = _damp_reduce(sys, lam, group)
-    fm = sys.free.to(dtype)
+def _reduced_system(sys: BASystem, lam: torch.Tensor, group=None):
+    """The reduced camera system as the solve takes it: ``(s [6W, 6W] + 1e-10
+    I, rhs [6W, 1], v_inv [L, 3, 3])``; the plain version of
+    ``ba_damp_reduce``."""
+    s, rhs, v_inv, _, _ = _damp_reduce(sys, lam, group)
+    n = s.shape[0] * 6
+    s_mat = s.reshape(n, n) + 1e-10 * torch.eye(n, dtype=s.dtype, device=s.device)
+    return s_mat, rhs.reshape(n, 1), v_inv
 
-    n = w * 6
-    s_mat = s.reshape(n, n) + 1e-10 * torch.eye(n, dtype=dtype, device=dev)
-    rhs_v = rhs.reshape(n, 1)
+
+def _reduced_solve(s_mat, rhs_v, resid, cfg):
+    """LU with ``cfg.reduced_solve_refine`` refinement passes, or the f64
+    island: ``(delta, corr)``, the solution ``delta + corr`` (``corr`` None
+    without refinement). ``resid``, where given, holds a copy of ``rhs_v``
+    that the first pass's residual is formed in, in place (one library call
+    on the card)."""
     if cfg.reduced_solve_f64:
         # the f64 island: Ceres' double-precision dense Schur solve, for the
         # tiny reduced system only
-        delta = torch.linalg.solve_ex(s_mat.to(torch.float64),
-                                      rhs_v.to(torch.float64))[0].to(dtype)
-    else:
-        lu, piv, _ = torch.linalg.lu_factor_ex(s_mat)
-        delta = torch.linalg.lu_solve(lu, piv, rhs_v)
-        for _ in range(int(cfg.reduced_solve_refine)):
+        return torch.linalg.solve_ex(s_mat.to(torch.float64),
+                                     rhs_v.to(torch.float64))[0].to(s_mat.dtype), None
+    lu, piv, _ = torch.linalg.lu_factor_ex(s_mat)
+    delta = torch.linalg.lu_solve(lu, piv, rhs_v)
+    corr = None
+    for _ in range(int(cfg.reduced_solve_refine)):
+        if corr is not None:
+            delta = delta + corr
+        if resid is None:
             resid = rhs_v - s_mat @ delta
-            delta = delta + torch.linalg.lu_solve(lu, piv, resid)
+        else:
+            resid.addmm_(s_mat, delta, alpha=-1.0)
+        corr = torch.linalg.lu_solve(lu, piv, resid)
+        resid = None
+    return delta, corr
+
+
+def _back_substitute(sys: BASystem, v_inv, delta, poses, lm_pos, lam, group=None):
+    """The landmarks' back-substitution from the reduced solve's ``delta [6W,
+    1]`` and the retraction: ``(poses', lm_pos', pred)`` with ``pred`` the
+    decrease predicted by the damped quadratic model."""
+    dtype = poses.dtype
+    w = poses.shape[0]
+    fm = sys.free.to(dtype)
     delta_p = delta.reshape(w, 6) * fm[:, None]
 
     wtdp = torch.sum(sys.wl * delta_p[None, :, :, None], dim=(1, 2))   # [L, 3]
@@ -298,6 +335,8 @@ def _solve_from_system(sys: BASystem, poses, lm_pos, lam, cfg, group=None):
     delta_l = torch.sum(v_inv * gw[:, None, :], dim=2)                 # [L, 3]
     delta_l = torch.where(sys.lm_active[:, None], delta_l, 0.0)
 
+    dp_diag = torch.clamp(torch.diagonal(sys.u_blocks, dim1=-2, dim2=-1), 1e-8, 1e32)
+    dl_diag = torch.clamp(torch.diagonal(sys.v, dim1=-2, dim2=-1), 1e-8, 1e32)
     pred_p = 0.5 * torch.sum(delta_p * (lam * dp_diag * delta_p + sys.g_p * fm[:, None]))
     pred_l = 0.5 * torch.sum(delta_l * (lam * dl_diag * delta_l + sys.g_l))
     if group is not None:
@@ -307,6 +346,16 @@ def _solve_from_system(sys: BASystem, poses, lm_pos, lam, cfg, group=None):
     new_poses = pose_retract(poses, delta_p)
     new_poses = torch.where(sys.free[:, None], new_poses, poses)
     return new_poses, lm_pos + delta_l, pred
+
+
+def _solve_from_system(sys: BASystem, poses, lm_pos, lam, cfg, group=None):
+    """Damped solve + back-substitution; returns ``(poses', lm_pos', pred)``
+    with ``pred`` the decrease predicted by the damped quadratic model."""
+    s_mat, rhs_v, v_inv = _reduced_system(sys, lam, group)
+    delta, corr = _reduced_solve(s_mat, rhs_v, None, cfg)
+    if corr is not None:
+        delta = delta + corr
+    return _back_substitute(sys, v_inv, delta, poses, lm_pos, lam, group)
 
 
 def lm_trip(max_lm_iters: int) -> int:
@@ -329,6 +378,339 @@ class _LMCarry(NamedTuple):
     it: torch.Tensor         # [] int32 bodies that updated
     rel: torch.Tensor
     done: torch.Tensor       # [] bool
+
+
+class _LMStep(NamedTuple):
+    """What one body hands on: the accept flag and the new carry, its
+    system aside."""
+
+    ok: torch.Tensor         # [] bool
+    poses: torch.Tensor
+    lm_pos: torch.Tensor
+    lam: torch.Tensor
+    nu: torch.Tensor
+    cost: torch.Tensor
+    accepted: torch.Tensor
+    it: torch.Tensor
+    rel: torch.Tensor
+    done: torch.Tensor
+
+
+def _lm_update(c: _LMCarry, cand_p, cand_l, cand_cost, pred, cfg) -> _LMStep:
+    """The body's bookkeeping: the accept test on the candidate's cost, the
+    Nielsen damping update and the stops."""
+    tol = cfg.lm_rel_tol
+    cost, lam, nu = c.cost, c.lam, c.nu
+    upd = ~c.done
+    ok = (cand_cost < cost) & torch.isfinite(cand_cost) & upd
+    poses = torch.where(ok, cand_p, c.poses)
+    lm_pos = torch.where(ok, cand_l, c.lm_pos)
+    cost_new = torch.where(ok, cand_cost, cost)
+    rho = (cost - cand_cost) / torch.clamp(pred, min=1e-20)
+    # 1 - b^3 rounded as the reference's compiled code rounds it: one fused
+    # multiply-add of -(b * b) and b
+    b = 2.0 * rho - 1.0
+    shrink = torch.clamp(fma_f32(-(b * b), b, 1.0), min=1.0 / 3.0)
+    new_lam = torch.where(
+        upd,
+        torch.clamp(torch.where(ok, lam * shrink, lam * nu), cfg.min_damping, cfg.max_damping),
+        lam)
+    nu = torch.where(upd, torch.where(ok, torch.full_like(nu, 2.0), nu * 2.0), nu)
+    rel = torch.where(upd, torch.abs(cost - cost_new) / torch.clamp(cost, min=1e-20), c.rel)
+    flat_reject = upd & ~ok & (torch.abs(cand_cost - cost) < tol * torch.clamp(cost, min=1e-20))
+    done = c.done | (ok & (rel < tol)) | flat_reject | (upd & ~ok & (lam >= cfg.max_damping))
+    return _LMStep(ok, poses, lm_pos, new_lam, nu, cost_new, c.accepted + ok.to(torch.int32),
+                   c.it + upd.to(torch.int32), rel, done)
+
+
+def _ba_step_ref(c: _LMCarry, v_inv, delta, corr, prob: LandmarkMajorProblem, cam, cfg,
+                 group=None) -> _LMStep:
+    """A body after its reduced solve: back-substitution from ``delta +
+    corr``, the candidate's cost and the update; the plain version of
+    ``ba_step``."""
+    if corr is not None:
+        delta = delta + corr
+    cand_p, cand_l, pred = _back_substitute(c.sys, v_inv, delta, c.poses, c.lm_pos, c.lam, group)
+    cand_cost = _lm_major_cost_ref(cand_p, cand_l, prob, cam, cfg.min_depth, cfg.huber_delta_px,
+                                   group)
+    return _lm_update(c, cand_p, cand_l, cand_cost, pred, cfg)
+
+
+# ---------------------------------------------------------------------------
+# the hand kernels (csrc/ba_lm.cu)
+
+class _CProblem(ctypes.Structure):
+    _fields_ = [("obs_uv", ctypes.c_void_p), ("obs_valid", ctypes.c_void_p),
+                ("pose_valid", ctypes.c_void_p), ("lm_valid", ctypes.c_void_p),
+                ("lm_prior", ctypes.c_void_p), ("lm_prior_w", ctypes.c_void_p),
+                ("L", ctypes.c_int), ("W", ctypes.c_int), ("focal", ctypes.c_float),
+                ("cx", ctypes.c_float), ("cy", ctypes.c_float), ("min_depth", ctypes.c_float),
+                ("huber", ctypes.c_float)]
+
+
+class _CSystem(ctypes.Structure):
+    _fields_ = [(name, ctypes.c_void_p) for name in BASystem._fields]
+
+
+class _CCarry(ctypes.Structure):
+    _fields_ = [(name, ctypes.c_void_p) for name in
+                ("poses", "lm_pos", "lam", "nu", "cost", "rel", "done", "accepted", "it", "ok")]
+
+
+class _CConfig(ctypes.Structure):
+    _fields_ = [("tol", ctypes.c_float), ("min_damping", ctypes.c_float),
+                ("max_damping", ctypes.c_float)]
+
+
+# the kernels' modes: the whole launch; the landmark sums only (to be
+# all-reduced over a process group); one block finishing from those sums
+_FULL, _SUMS, _FINISH = 0, 1, 2
+# svo_ba_scratch_floats' kernel numbers
+_BUILD, _DAMP, _STEP, _COST = 0, 1, 2, 3
+
+_ba_fns = None
+
+
+def _ba_kernels():
+    """``csrc/ba_lm.cu``'s entry points, built, loaded and typed at first
+    use: ``(scratch_floats, build, damp_reduce, step, cost)``."""
+    global _ba_fns
+    if _ba_fns is None:
+        from stereo_vo_tpu_torch import cuda_build
+
+        lib = cuda_build.load("ba_lm")
+        p, i = ctypes.c_void_p, ctypes.c_int
+        scratch = lib.svo_ba_scratch_floats
+        scratch.argtypes = [i, i, i]
+        scratch.restype = ctypes.c_longlong
+        build, damp, step, cost = (lib.svo_ba_build, lib.svo_ba_damp_reduce, lib.svo_ba_step,
+                                   lib.svo_ba_cost)
+        build.argtypes = [p, p, ctypes.POINTER(_CProblem), ctypes.POINTER(_CSystem), p, p]
+        damp.argtypes = [ctypes.POINTER(_CSystem), p, i, i, i, p, p, p, p, p, p]
+        step.argtypes = [p, p, ctypes.POINTER(_CProblem), ctypes.POINTER(_CSystem), p,
+                         ctypes.POINTER(_CCarry), ctypes.POINTER(_CCarry),
+                         ctypes.POINTER(_CConfig), i, p, p]
+        cost.argtypes = [p, p, ctypes.POINTER(_CProblem), p, p, p]
+        for fn in (build, damp, step, cost):
+            fn.restype = ctypes.c_int
+        _ba_fns = (scratch, build, damp, step, cost)
+    return _ba_fns
+
+
+def _ptr(t: Optional[torch.Tensor]) -> int:
+    return 0 if t is None else t.data_ptr()
+
+
+def _kernel_inputs(what: str, dev: torch.device, **named) -> None:
+    """Raise unless each ``name=(tensor, dtype, shape)`` lies contiguous on
+    ``dev`` in its dtype and shape."""
+    for name, (t, dtype, shape) in named.items():
+        if (t.device != dev or t.dtype != dtype or tuple(t.shape) != tuple(shape)
+                or not t.is_contiguous()):
+            raise ValueError(f"{what}: {name} must be a contiguous {dtype} {tuple(shape)} on "
+                             f"{dev}, got {t.dtype} {tuple(t.shape)} on {t.device}"
+                             f"{'' if t.is_contiguous() else ', not contiguous'}")
+
+
+def _c_problem(prob: LandmarkMajorProblem, cam, min_depth, huber_delta) -> _CProblem:
+    l, w = prob.obs_valid.shape
+    f32, b8 = torch.float32, torch.bool
+    _kernel_inputs("ba_lm", prob.poses.device, obs_uv=(prob.obs_uv, f32, (l, w, 2)),
+                   obs_valid=(prob.obs_valid, b8, (l, w)), pose_valid=(prob.pose_valid, b8, (w,)),
+                   lm_valid=(prob.lm_valid, b8, (l,)), lm_prior=(prob.lm_prior, f32, (l, 3)),
+                   lm_prior_w=(prob.lm_prior_w, f32, (l,)))
+    return _CProblem(_ptr(prob.obs_uv), _ptr(prob.obs_valid), _ptr(prob.pose_valid),
+                     _ptr(prob.lm_valid), _ptr(prob.lm_prior), _ptr(prob.lm_prior_w), l, w,
+                     cam.focal, cam.cx, cam.cy, min_depth, huber_delta)
+
+
+def _c_system(sys: BASystem) -> _CSystem:
+    l, w = sys.wl.shape[:2]
+    f32, b8 = torch.float32, torch.bool
+    _kernel_inputs("ba_lm", sys.wl.device, v=(sys.v, f32, (l, 3, 3)), g_l=(sys.g_l, f32, (l, 3)),
+                   wl=(sys.wl, f32, (l, w, 6, 3)), u_blocks=(sys.u_blocks, f32, (w, 6, 6)),
+                   g_p=(sys.g_p, f32, (w, 6)), lm_active=(sys.lm_active, b8, (l,)),
+                   free=(sys.free, b8, (w,)))
+    return _CSystem(*(_ptr(t) for t in sys))
+
+
+def _points(what, poses, lm_pos, l, w) -> None:
+    _kernel_inputs(what, poses.device, poses=(poses, torch.float32, (w, 7)),
+                   lm_pos=(lm_pos, torch.float32, (l, 3)))
+
+
+def _launch(what: str, fn, dev: torch.device, *args) -> None:
+    with torch.cuda.device(dev):
+        rc = fn(*args, torch.cuda.current_stream(dev).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"{what} kernel launch failed: CUDA error {rc}")
+
+
+def _scratch(kernel: int, l: int, w: int, dev) -> torch.Tensor:
+    n = _ba_kernels()[0](kernel, l, w)
+    if n < 0:
+        raise ValueError(f"ba_lm: {l} landmarks and {w} poses are not a shape the kernels take")
+    return torch.empty(n, dtype=torch.float32, device=dev)
+
+
+def _on_card(what: str, t: torch.Tensor) -> bool:
+    """False for a CPU tensor (the plain version); True for a CUDA one."""
+    if t.device.type == "cpu":
+        return False
+    if t.device.type != "cuda":
+        raise ValueError(f"{what}: unsupported device {t.device}")
+    return True
+
+
+def ba_build(poses, lm_pos, prob: LandmarkMajorProblem, cam, cfg, group=None) -> BASystem:
+    """``_build_system``'s λ-free system at ``(poses, lm_pos)``. CUDA tensors
+    go through ``csrc/ba_lm.cu``'s ``ba_build_kernel`` (one launch, counted
+    in ``ba_build.launches``); with a ``group`` its ``u_blocks`` and ``g_p``
+    are then summed over the ranks. CPU tensors go through
+    ``_build_system``."""
+    if not _on_card("ba_build", poses):
+        return _build_system(poses, lm_pos, prob, cam, cfg, group)
+    l, w = prob.obs_valid.shape
+    dev = poses.device
+    _points("ba_build", poses, lm_pos, l, w)
+    cprob = _c_problem(prob, cam, cfg.min_depth, cfg.huber_delta_px)
+    f32 = dict(dtype=torch.float32, device=dev)
+    sys = BASystem(v=torch.empty(l, 3, 3, **f32), g_l=torch.empty(l, 3, **f32),
+                   wl=torch.empty(l, w, 6, 3, **f32), u_blocks=torch.empty(w, 6, 6, **f32),
+                   g_p=torch.empty(w, 6, **f32),
+                   lm_active=torch.empty(l, dtype=torch.bool, device=dev),
+                   free=torch.empty(w, dtype=torch.bool, device=dev))
+    scratch = _scratch(_BUILD, l, w, dev)
+    _launch("ba_build", _ba_kernels()[1], dev, poses.data_ptr(), lm_pos.data_ptr(),
+            ctypes.byref(cprob), ctypes.byref(_c_system(sys)), scratch.data_ptr())
+    ba_build.launches += 1
+    if group is not None:
+        sys = sys._replace(u_blocks=_all_reduce(sys.u_blocks, group),
+                           g_p=_all_reduce(sys.g_p, group))
+    return sys
+
+
+ba_build.launches = 0
+
+
+def ba_damp_reduce(sys: BASystem, lam: torch.Tensor, cfg, group=None):
+    """``_reduced_system``'s ``(s_mat, rhs_v, v_inv)`` and, last, a copy of
+    ``rhs_v`` for the refinement's residual (None on the CPU, or without
+    refinement). CUDA tensors go through ``ba_damp_reduce_kernel`` (one
+    launch, counted in ``ba_damp_reduce.launches``; with a ``group``, two:
+    its Gram summed over the ranks between them). CPU tensors go through
+    ``_reduced_system``."""
+    if not _on_card("ba_damp_reduce", sys.wl):
+        return (*_reduced_system(sys, lam, group), None)
+    l, w = sys.wl.shape[:2]
+    dev = sys.wl.device
+    csys = _c_system(sys)
+    _kernel_inputs("ba_damp_reduce", dev, lam=(lam, torch.float32, ()))
+    n = 6 * w
+    f32 = dict(dtype=torch.float32, device=dev)
+    s_mat, rhs_v, v_inv = torch.empty(n, n, **f32), torch.empty(n, 1, **f32), torch.empty(
+        l, 3, 3, **f32)
+    resid = (torch.empty(n, 1, **f32)
+             if cfg.reduced_solve_refine > 0 and not cfg.reduced_solve_f64 else None)
+    scratch = _scratch(_DAMP, l, w, dev)
+    fn = _ba_kernels()[2]
+
+    def launch(mode):
+        _launch("ba_damp_reduce", fn, dev, ctypes.byref(csys), lam.data_ptr(), l, w, mode,
+                v_inv.data_ptr(), scratch.data_ptr(), s_mat.data_ptr(), rhs_v.data_ptr(),
+                _ptr(resid))
+        ba_damp_reduce.launches += 1
+
+    if group is None:
+        launch(_FULL)
+    else:
+        launch(_SUMS)
+        _all_reduce(scratch[-(n + 1) * (n + 1):], group)
+        launch(_FINISH)
+    return s_mat, rhs_v, v_inv, resid
+
+
+ba_damp_reduce.launches = 0
+
+
+def ba_step(c: _LMCarry, v_inv, delta, corr, prob: LandmarkMajorProblem, cam, cfg,
+            group=None) -> _LMStep:
+    """``_ba_step_ref``: from the reduced solve's ``delta`` (and ``corr``)
+    the back-substitution, the candidate's cost and the update, as a new
+    carry. CUDA tensors go through ``ba_step_kernel`` (one launch, counted
+    in ``ba_step.launches``; with a ``group``, two: the candidate's cost and
+    the landmarks' predicted decrease summed over the ranks between them).
+    CPU tensors go through ``_ba_step_ref``."""
+    if not _on_card("ba_step", c.poses):
+        return _ba_step_ref(c, v_inv, delta, corr, prob, cam, cfg, group)
+    l, w = prob.obs_valid.shape
+    dev = c.poses.device
+    f32, i32, b8 = torch.float32, torch.int32, torch.bool
+    _points("ba_step", c.poses, c.lm_pos, l, w)
+    _kernel_inputs("ba_step", dev, v_inv=(v_inv, f32, (l, 3, 3)), delta=(delta, f32, (6 * w, 1)),
+                   **({} if corr is None else {"corr": (corr, f32, (6 * w, 1))}),
+                   lam=(c.lam, f32, ()), nu=(c.nu, f32, ()), cost=(c.cost, f32, ()),
+                   rel=(c.rel, f32, ()), done=(c.done, b8, ()), accepted=(c.accepted, i32, ()),
+                   it=(c.it, i32, ()))
+    cprob = _c_problem(prob, cam, cfg.min_depth, cfg.huber_delta_px)
+    csys = _c_system(c.sys)
+    poses = torch.empty(w, 7, dtype=f32, device=dev)
+    lm_pos = torch.empty(l, 3, dtype=f32, device=dev)
+    floats = torch.empty(4, dtype=f32, device=dev)       # lam, nu, cost, rel
+    ints = torch.empty(2, dtype=i32, device=dev)         # accepted, it
+    flags = torch.empty(2, dtype=b8, device=dev)         # done, ok
+    cin = _CCarry(c.poses.data_ptr(), c.lm_pos.data_ptr(), c.lam.data_ptr(), c.nu.data_ptr(),
+                  c.cost.data_ptr(), c.rel.data_ptr(), c.done.data_ptr(), c.accepted.data_ptr(),
+                  c.it.data_ptr(), 0)
+    cout = _CCarry(poses.data_ptr(), lm_pos.data_ptr(), *(floats[k].data_ptr() for k in range(4)),
+                   flags[0].data_ptr(), ints[0].data_ptr(), ints[1].data_ptr(),
+                   flags[1].data_ptr())
+    ccfg = _CConfig(cfg.lm_rel_tol, cfg.min_damping, cfg.max_damping)
+    scratch = _scratch(_STEP, l, w, dev)
+    fn = _ba_kernels()[3]
+
+    def launch(mode):
+        _launch("ba_step", fn, dev, delta.data_ptr(), _ptr(corr), ctypes.byref(cprob),
+                ctypes.byref(csys), v_inv.data_ptr(), ctypes.byref(cin), ctypes.byref(cout),
+                ctypes.byref(ccfg), mode, scratch.data_ptr())
+        ba_step.launches += 1
+
+    if group is None:
+        launch(_FULL)
+    else:
+        launch(_SUMS)
+        _all_reduce(scratch[-2:], group)
+        launch(_FINISH)
+    return _LMStep(ok=flags[1], poses=poses, lm_pos=lm_pos, lam=floats[0], nu=floats[1],
+                   cost=floats[2], accepted=ints[0], it=ints[1], rel=floats[3], done=flags[0])
+
+
+ba_step.launches = 0
+
+
+def ba_cost(poses, lm_pos, prob: LandmarkMajorProblem, cam, min_depth, huber_delta,
+            group=None) -> torch.Tensor:
+    """``_lm_major_cost_ref``'s cost at ``(poses, lm_pos)``, summed over the
+    ranks of a ``group``. CUDA tensors go through ``ba_cost_kernel`` (one
+    launch, counted in ``ba_cost.launches``); CPU tensors through
+    ``_lm_major_cost_ref``."""
+    if not _on_card("ba_cost", poses):
+        return _lm_major_cost_ref(poses, lm_pos, prob, cam, min_depth, huber_delta, group)
+    l, w = prob.obs_valid.shape
+    dev = poses.device
+    _points("ba_cost", poses, lm_pos, l, w)
+    cprob = _c_problem(prob, cam, min_depth, huber_delta)
+    cost = torch.empty((), dtype=torch.float32, device=dev)
+    scratch = _scratch(_COST, l, w, dev)
+    _launch("ba_cost", _ba_kernels()[4], dev, poses.data_ptr(), lm_pos.data_ptr(),
+            ctypes.byref(cprob), scratch.data_ptr(), cost.data_ptr())
+    ba_cost.launches += 1
+    return cost if group is None else _all_reduce(cost, group)
+
+
+ba_cost.launches = 0
+# the reference's name for the cost at an iterate
+_lm_major_cost = ba_cost
 
 
 def lm_loop(prob: LandmarkMajorProblem, cam, cfg, init_lam=None, group=None):
@@ -364,10 +746,8 @@ def _lm_run(prob: LandmarkMajorProblem, cam, cfg, init_lam=None, group=None):
 
     poses, lm_pos = prob.poses, prob.lm_pos
     dtype, dev = poses.dtype, poses.device
-    hd = cfg.huber_delta_px
-    tol = cfg.lm_rel_tol
-    cost0 = _lm_major_cost(poses, lm_pos, prob, cam, cfg.min_depth, hd, group)
-    sys0 = _build_system(poses, lm_pos, prob, cam, cfg, group)
+    cost0 = _lm_major_cost(poses, lm_pos, prob, cam, cfg.min_depth, cfg.huber_delta_px, group)
+    sys0 = ba_build(poses, lm_pos, prob, cam, cfg, group)
 
     if init_lam is None:
         lam = torch.full((), cfg.init_damping, dtype=dtype, device=dev)
@@ -376,40 +756,22 @@ def _lm_run(prob: LandmarkMajorProblem, cam, cfg, init_lam=None, group=None):
                           cfg.min_damping, cfg.max_damping)
 
     def rebuild(p, l, _):
-        return _build_system(p, l, prob, cam, cfg)
+        return ba_build(p, l, prob, cam, cfg)
 
     def keep(_, __, sys):
         return sys
 
     def body(c: _LMCarry) -> _LMCarry:
-        cand_p, cand_l, pred = _solve_from_system(c.sys, c.poses, c.lm_pos, c.lam, cfg, group)
-        cand_cost = _lm_major_cost(cand_p, cand_l, prob, cam, cfg.min_depth, hd, group)
-        cost, lam, nu = c.cost, c.lam, c.nu
-        upd = ~c.done
-        ok = (cand_cost < cost) & torch.isfinite(cand_cost) & upd
-        poses = torch.where(ok, cand_p, c.poses)
-        lm_pos = torch.where(ok, cand_l, c.lm_pos)
-        cost_new = torch.where(ok, cand_cost, cost)
+        s_mat, rhs_v, v_inv, resid = ba_damp_reduce(c.sys, c.lam, cfg, group)
+        delta, corr = _reduced_solve(s_mat, rhs_v, resid, cfg)
+        step = ba_step(c, v_inv, delta, corr, prob, cam, cfg, group)
         if group is None:
-            sys = graphs.cond(ok, rebuild, keep, (poses, lm_pos, c.sys))
+            sys = graphs.cond(step.ok, rebuild, keep, (step.poses, step.lm_pos, c.sys))
         else:
-            rebuilt = _build_system(poses, lm_pos, prob, cam, cfg, group)
-            sys = BASystem(*(torch.where(ok, new, old) for new, old in zip(rebuilt, c.sys)))
-        rho = (cost - cand_cost) / torch.clamp(pred, min=1e-20)
-        shrink = torch.clamp(1.0 - (2.0 * rho - 1.0) ** 3, min=1.0 / 3.0)
-        new_lam = torch.where(
-            upd,
-            torch.clamp(torch.where(ok, lam * shrink, lam * nu), cfg.min_damping,
-                        cfg.max_damping),
-            lam)
-        nu = torch.where(upd, torch.where(ok, torch.full_like(nu, 2.0), nu * 2.0), nu)
-        rel = torch.where(upd, torch.abs(cost - cost_new) / torch.clamp(cost, min=1e-20),
-                          c.rel)
-        flat_reject = upd & ~ok & (
-            torch.abs(cand_cost - cost) < tol * torch.clamp(cost, min=1e-20))
-        done = c.done | (ok & (rel < tol)) | flat_reject | (upd & ~ok & (lam >= cfg.max_damping))
-        return _LMCarry(poses, lm_pos, sys, new_lam, nu, cost_new,
-                        c.accepted + ok.to(torch.int32), c.it + upd.to(torch.int32), rel, done)
+            rebuilt = ba_build(step.poses, step.lm_pos, prob, cam, cfg, group)
+            sys = BASystem(*(torch.where(step.ok, new, old) for new, old in zip(rebuilt, c.sys)))
+        return _LMCarry(step.poses, step.lm_pos, sys, step.lam, step.nu, step.cost,
+                        step.accepted, step.it, step.rel, step.done)
 
     def lm_pair(c: _LMCarry) -> _LMCarry:
         return body(body(c))

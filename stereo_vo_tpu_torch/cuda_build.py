@@ -27,6 +27,9 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
+# flags of one library on top of NVCC_FLAGS (hashed into its name only):
+# ba_lm rounds each product and sum on its own, as torch's kernels do
+EXTRA_FLAGS = {"ba_lm": ("--fmad=false",)}
 
 _lock = threading.Lock()
 _loaded: dict = {}
@@ -46,10 +49,14 @@ def find_nvcc() -> str:
     raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on PATH")
 
 
+def flags(name: str) -> tuple:
+    return NVCC_FLAGS + EXTRA_FLAGS.get(name, ())
+
+
 def library_path(name: str) -> str:
     src = os.path.join(CSRC_DIR, name + ".cu")
     with open(src, "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+        digest = hashlib.sha256(f.read() + " ".join(flags(name)).encode()).hexdigest()[:16]
     return os.path.join(BUILD_DIR, f"lib{name}-{digest}.so")
 
 
@@ -65,7 +72,7 @@ def build(name: str) -> str:
     os.close(fd)
     t0 = time.perf_counter()
     proc = subprocess.run(
-        [find_nvcc(), *NVCC_FLAGS, "-o", tmp, src],
+        [find_nvcc(), *flags(name), "-o", tmp, src],
         capture_output=True, text=True,
     )
     if proc.returncode != 0:

@@ -22,9 +22,13 @@ beside the trace's; ``profile_chunk`` for one chunk of ``replay_chunk``
 ``keyframe_bm_input`` builds the 748-slot sparse-BM input of a keyframe
 step. ``recorded_solves`` keeps the windows the bundle adjustments of some
 steps start from, and ``profile_solves`` replays each of those solves as a
-graph program of its own (``solve_program``) and reads its device time
-(``device_ms``, the kernels' sum; ``elapsed_ms``, CUDA events around the
-replays) beside the LM loop's stop (``lm_stop``).
+graph program of its own (``solve_program``) and reads its device time and
+kernels (``device_profile``, the kernels' sum; ``elapsed_ms``, CUDA events
+around the replays) beside the LM loop's stop (``lm_stop``), per LM body
+and run eagerly. ``profile_step_parts`` splits an eager keyframe step's
+device time and kernels into detection, BM, PnP and BA (in a profiled graph
+step a WHILE body nested in an IF body shows its first trip's kernels
+only).
 """
 
 from __future__ import annotations
@@ -195,18 +199,27 @@ KEYFRAME_TIMED_FROM = 2
 # device function names of the port's hand-written kernels (csrc/*.cu), and
 # the wrapper that counts each one's launches: (module, function)
 PORT_KERNELS = ("lk_level_kernel", "stereo_bm_at_kernel", "extract_regions_kernel",
-                "greedy_nms_kernel")
+                "greedy_nms_kernel", "ba_build_kernel", "ba_damp_reduce_kernel",
+                "ba_step_kernel", "ba_cost_kernel")
 PORT_WRAPPERS = {"lk_level_kernel": ("ops.lk", "lk_level_pass"),
                  "stereo_bm_at_kernel": ("ops.stereo_bm", "stereo_bm_at"),
                  "extract_regions_kernel": ("ops.regions", "extract_regions"),
-                 "greedy_nms_kernel": ("ops.shi_tomasi", "greedy_nms")}
+                 "greedy_nms_kernel": ("ops.shi_tomasi", "greedy_nms"),
+                 "ba_build_kernel": ("backend.schur", "ba_build"),
+                 "ba_damp_reduce_kernel": ("backend.schur", "ba_damp_reduce"),
+                 "ba_step_kernel": ("backend.schur", "ba_step"),
+                 "ba_cost_kernel": ("backend.schur", "ba_cost")}
 # the profiler ranges this module puts around each profiled step (the step
 # call and the summary fetch) and around each profiled replay_chunk call, and
 # the one replay_chunk puts around its frames (engine/step.py CHUNK_RANGE)
 STEP_RANGE = "profile.step"
 CHUNK_CALL_RANGE = "profile.replay_chunk"
 CHUNK_RANGE = "VOEngine.replay_chunk.frames"
-RANGES = (STEP_RANGE, CHUNK_CALL_RANGE, CHUNK_RANGE)
+# the parts of a keyframe step that profile_step_parts puts in ranges
+# ("part.<name>"): the functions engine/step.py calls for them
+STEP_PARTS = {"detect": "detect_features", "bm": "stereo_bm_at", "pnp": "pnp_ransac",
+              "ba": "bundle_adjust"}
+RANGES = (STEP_RANGE, CHUNK_CALL_RANGE, CHUNK_RANGE) + tuple("part." + p for p in STEP_PARTS)
 
 
 def wrapper_launches() -> Dict[str, int]:
@@ -468,10 +481,10 @@ def solve_program(window, cam, bcfg, compact):
     return lambda: program((), (window,))
 
 
-def device_ms(fn, calls: int = 3) -> float:
-    """Device time per call of ``fn`` in ms: every kernel's self device time
-    ``torch.profiler`` records over ``calls`` calls, after one unprofiled
-    call."""
+def device_profile(fn, calls: int = 3) -> Tuple[float, float]:
+    """Device time in ms and device kernels per call of ``fn``: every
+    kernel's self device time, and the kernels, that ``torch.profiler``
+    records over ``calls`` calls, after one unprofiled call."""
     import torch
     from torch.autograd import DeviceType
 
@@ -481,8 +494,15 @@ def device_ms(fn, calls: int = 3) -> float:
         for _ in range(calls):
             fn()
         torch.cuda.synchronize()
-    events = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
-    return sum(e.self_device_time_total for e in events) / calls / 1e3
+    events = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA
+              and not getattr(e, "is_user_annotation", False)]
+    return (sum(e.self_device_time_total for e in events) / calls / 1e3,
+            sum(e.count for e in events) / calls)
+
+
+def device_ms(fn, calls: int = 3) -> float:
+    """Device time per call of ``fn`` in ms (``device_profile``)."""
+    return device_profile(fn, calls)[0]
 
 
 def elapsed_ms(fn, calls: int = 10) -> float:
@@ -528,17 +548,85 @@ def profile_solves(cfg, frames, device, steps=range(8, 12)) -> dict:
     20-frame world: every step a keyframe), each from its recorded window
     (``recorded_solves``) replayed as its own graph program: per solve its
     compaction choice, the LM loop's ``it`` and accepted steps, its device
-    ms (the kernels' sum) and its elapsed ms (CUDA events around the
-    replays); and their means."""
+    ms and device kernels (``device_profile``), its elapsed ms (CUDA events
+    around the replays), the same solve with ``max_lm_iters = 0`` (no LM
+    body: what surrounds the loop), and from the two the device kernels and
+    ms per LM body (the loop runs ``2 * ceil(it / 2)`` bodies, each with its
+    rebuild or keep); the same solve run eagerly (``eager_device_ms``: the
+    same kernels launched one by one, none in a conditional body); and
+    their means."""
+    import dataclasses
+
+    from stereo_vo_tpu_torch.backend.schur import bundle_adjust
+
     rows = []
     for window, compact in recorded_solves(cfg, frames, device, steps):
         it, accepted = lm_stop(window, cfg.camera, cfg.backend, compact)
         call = solve_program(window, cfg.camera, cfg.backend, compact)
-        rows.append({"compact": compact, "it": it, "accepted": accepted,
-                     "device_ms": device_ms(call), "elapsed_ms": elapsed_ms(call)})
+        ms, kernels = device_profile(call)
+        ms0, kernels0 = device_profile(solve_program(
+            window, cfg.camera, dataclasses.replace(cfg.backend, max_lm_iters=0), compact))
+        eager_ms, eager_kernels = device_profile(
+            lambda: bundle_adjust(window, cfg.camera, cfg.backend, compact=compact))
+        bodies = 2 * ((it + 1) // 2)
+        rows.append({"compact": compact, "it": it, "accepted": accepted, "bodies": bodies,
+                     "device_ms": ms, "device_kernels": kernels, "elapsed_ms": elapsed_ms(call),
+                     "loop_free_device_ms": ms0, "loop_free_device_kernels": kernels0,
+                     "device_kernels_per_body": (kernels - kernels0) / bodies,
+                     "device_ms_per_body": (ms - ms0) / bodies,
+                     "eager_device_ms": eager_ms, "eager_device_kernels": eager_kernels})
     return {"steps": [min(steps), max(steps)], "solves": rows,
-            "device_ms_mean": statistics.mean(r["device_ms"] for r in rows),
-            "elapsed_ms_mean": statistics.mean(r["elapsed_ms"] for r in rows)}
+            **{f"{key}_mean": statistics.mean(r[key] for r in rows)
+               for key in ("device_ms", "elapsed_ms", "device_kernels",
+                           "device_kernels_per_body", "device_ms_per_body", "eager_device_ms")}}
+
+
+def profile_step_parts(cfg, frames, device) -> dict:
+    """Stream ``frames`` (the 20-frame world, every frame a keyframe) through
+    a fresh eager ``VOEngine`` (``graphs=False``: every ``cond`` runs the
+    side it takes, so each part's kernels are its own) on ``device`` and
+    profile the steps of ``KEYFRAME_PROFILED``, each call of the functions
+    of ``STEP_PARTS`` inside a range of its part's name: per keyframe step
+    the mean device ms and device kernels of each part and of the whole step
+    (its summary fetch included), and the rest."""
+    from torch.profiler import record_function
+
+    from stereo_vo_tpu_torch.engine import step as step_module
+    from stereo_vo_tpu_torch.engine.step import VOEngine
+
+    def ranged(name, fn):
+        def call(*args, **kwargs):
+            with record_function(name):
+                return fn(*args, **kwargs)
+        return call
+
+    engine = VOEngine(cfg, frames[0].left.shape, device=device, graphs=False)
+    state, _ = engine.bootstrap(engine.init_state(), frames[0].left, frames[0].right)
+    first, end = KEYFRAME_PROFILED
+    for i in range(1, first):
+        state, _, _ = _step(engine, state, frames[i])
+    originals = {fn: getattr(step_module, fn) for fn in STEP_PARTS.values()}
+    keyframes = []
+    try:
+        for part, fn in STEP_PARTS.items():
+            setattr(step_module, fn, ranged("part." + part, originals[fn]))
+        with device_trace() as prof:
+            for i in range(first, end):
+                state, _, row = _step(engine, state, frames[i])
+                keyframes.append(row["is_keyframe"])
+    finally:
+        for fn, original in originals.items():
+            setattr(step_module, fn, original)
+    n = sum(keyframes)
+    steps = [r for r, kf in zip(range_calls(prof, STEP_RANGE), keyframes) if kf]
+    out = {"frames": [first, end], "keyframe_steps": n,
+           "step": {k: sum(r[k] for r in steps) / n for k in ("device_ms", "kernels")}}
+    for part in STEP_PARTS:
+        rows = range_calls(prof, "part." + part)
+        out[part] = {k: sum(r[k] for r in rows) / n for k in ("device_ms", "kernels")}
+    out["rest"] = {k: out["step"][k] - sum(out[p][k] for p in STEP_PARTS)
+                   for k in ("device_ms", "kernels")}
+    return out
 
 
 def keyframe_bm_input(cfg, frame0, frame1, device, live=True):
