@@ -89,6 +89,7 @@ def _cmd_run(args) -> int:
         save_world_points=args.save_world_points,
         progress=not args.quiet,
         device=args.device,
+        trace=args.trace,
     )
 
     summary = {
@@ -166,6 +167,9 @@ def main(argv=None) -> int:
     pr.add_argument("--resume", default=None, help="checkpoint file to resume from")
     pr.add_argument("--plot", action="store_true", help="write trajectory.png (needs matplotlib)")
     pr.add_argument("--quiet", action="store_true")
+    pr.add_argument("--trace", action="store_true",
+                    help="record the engine's spans; with --out, write them to spans.json "
+                         "(Chrome trace format)")
     pr.set_defaults(fn=_cmd_run)
 
     pe = sub.add_parser("eval", help="ATE/RPE between two trajectory files")

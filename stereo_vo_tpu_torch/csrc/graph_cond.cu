@@ -1,4 +1,5 @@
-// Conditional nodes for the CUDA graphs that torch.cuda.graph captures.
+// Conditional nodes for the CUDA graphs that torch.cuda.graph captures, and
+// the device stamps of the engine's span recorder.
 //
 // The reference takes every decision of a frame on the device with
 // jax.lax.cond and runs its loops with jax.lax.while_loop
@@ -29,7 +30,22 @@
 //     given a suspended `parent`, resumes capturing into it after `node`;
 //   svo_cuda_versions(runtime, driver)
 //     the CUDA runtime's and the driver's versions (a conditional node inside
-//     a body graph needs 12.4 in both).
+//     a body graph needs 12.4 in both);
+//   svo_stamp(stream, ring, ctl, capacity, code, frame, call)
+//     on `stream`, captured or not, a one-thread kernel reads %globaltimer
+//     and appends the record (ns, code, frame, call), four int64, to `ring`
+//     at the slot an atomicAdd on ctl[0] hands out; a slot at or past
+//     `capacity` is not written, so ctl[0] - capacity counts the records
+//     dropped. `call` >= 0 opens a call: ctl[1] = call and ctl[2] = *frame
+//     (-1 without `frame`) first. Every record takes its frame and call from
+//     ctl[2] and ctl[1], so a stamp captured in a graph, whose arguments are
+//     fixed, carries the call that the eager stamp before the replay opened
+//     (the span recorder, utils/profiling.py::Recorder);
+//   svo_timer_tick(stream, out, reads)
+//     a one-thread kernel reads %globaltimer `reads` times and writes the
+//     smallest step between two readings that differ, the number of such
+//     steps and the nanoseconds from the first reading to the last to
+//     out[0..2].
 //
 // Between begin and end the caller makes `body_stream` its current stream,
 // so every operation of the body lands in the body graph. Bodies nest on one
@@ -75,6 +91,47 @@ cudaError_t set_condition(cudaStream_t stream, cudaGraphConditionalHandle handle
                           const bool* pred, int negate) {
     set_condition_kernel<<<1, 1, 0, stream>>>(handle, pred, negate);
     return cudaGetLastError();
+}
+
+__device__ __forceinline__ unsigned long long global_ns() {
+    unsigned long long t;
+    asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+    return t;
+}
+
+__global__ void stamp_kernel(long long* ring, long long* ctl, long long capacity, long long code,
+                             const int* frame, long long call) {
+    const long long t = static_cast<long long>(global_ns());
+    if (call >= 0) {
+        ctl[1] = call;
+        ctl[2] = frame != nullptr ? static_cast<long long>(*frame) : -1;
+    }
+    const unsigned long long slot = atomicAdd(reinterpret_cast<unsigned long long*>(ctl), 1ull);
+    if (slot < static_cast<unsigned long long>(capacity)) {
+        long long* r = ring + 4 * slot;
+        r[0] = t;
+        r[1] = code;
+        r[2] = ctl[2];
+        r[3] = ctl[1];
+    }
+}
+
+__global__ void timer_tick_kernel(long long* out, int reads) {
+    const unsigned long long first = global_ns();
+    unsigned long long prev = first;
+    unsigned long long best = ~0ull;
+    long long steps = 0;
+    for (int i = 0; i < reads; ++i) {
+        const unsigned long long t = global_ns();
+        if (t != prev) {
+            best = t - prev < best ? t - prev : best;
+            ++steps;
+            prev = t;
+        }
+    }
+    out[0] = steps > 0 ? static_cast<long long>(best) : 0;
+    out[1] = steps;
+    out[2] = static_cast<long long>(prev - first);
 }
 
 }  // namespace
@@ -185,4 +242,16 @@ extern "C" int svo_cuda_versions(int* runtime, int* driver) {
         return static_cast<int>(err);
     }
     return static_cast<int>(cudaDriverGetVersion(driver));
+}
+
+extern "C" int svo_stamp(void* stream_ptr, long long* ring, long long* ctl, long long capacity,
+                         long long code, const int* frame, long long call) {
+    stamp_kernel<<<1, 1, 0, static_cast<cudaStream_t>(stream_ptr)>>>(ring, ctl, capacity, code,
+                                                                      frame, call);
+    return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int svo_timer_tick(void* stream_ptr, long long* out, int reads) {
+    timer_tick_kernel<<<1, 1, 0, static_cast<cudaStream_t>(stream_ptr)>>>(out, reads);
+    return static_cast<int>(cudaGetLastError());
 }

@@ -40,6 +40,9 @@ class VORun:
     # chunks that missed the device-resident preload and were uploaded from
     # the host (0 whenever preload_device=True; >0 would flag a perf bug)
     preload_misses: int = 0
+    # the engine's spans over the run, with trace=True
+    # (utils/profiling.py::Trace)
+    spans: Optional[object] = None
 
 
 def _sync(device: torch.device) -> None:
@@ -75,6 +78,7 @@ def run_vo(
     progress: bool = False,
     engine: Optional[VOEngine] = None,
     device="cuda",
+    trace: bool = False,
 ) -> VORun:
     """Run the full VO pipeline over a stereo stream.
 
@@ -96,12 +100,20 @@ def run_vo(
     ``engine`` reuses an already-built ``VOEngine`` (a live source must not
     pay the first-frame warm-up mid-stream); otherwise one is built on
     ``device`` (``cuda`` unless the caller passes ``device="cpu"``).
+
+    ``trace`` records the engine's spans (``VOEngine(..., trace=True)``; a
+    given engine must have been built so) and drains them into
+    ``VORun.spans`` at the end; with ``out_dir`` they are also written to
+    ``out_dir/spans.json`` in the Chrome trace format
+    (``utils/profiling.py::write_chrome_trace``).
     """
     it = iter(drop_gate(stream, config.runtime.drop_time) if apply_drop_gate else stream)
 
     first = next(it)
     if engine is None:
-        engine = VOEngine(config, first.left.shape, device=device)
+        engine = VOEngine(config, first.left.shape, device=device, trace=trace)
+    elif trace and engine.recorder is None:
+        raise ValueError("trace=True needs an engine built with trace=True")
     elif engine.image_shape != tuple(first.left.shape):
         raise ValueError(
             f"engine built for image shape {engine.image_shape}, "
@@ -322,6 +334,7 @@ def run_vo(
         drain_inflight()
         elapsed = time.perf_counter() - t_start if t_start else 0.0
     engine.flush_launches()
+    spans = engine.trace_records() if trace else None
     n_timed = max(n_done - n_timed_from, 0) if t_start else 0
     fps = n_timed / elapsed if elapsed > 0 and n_timed > 0 else 0.0
 
@@ -340,11 +353,15 @@ def run_vo(
 
         write_kitti_trajectory(os.path.join(out_dir, "trajectory_kitti.txt"), poses_arr)
         write_tum_trajectory(os.path.join(out_dir, "trajectory_tum.txt"), poses_arr)
+        if spans is not None:
+            from stereo_vo_tpu_torch.utils.profiling import write_chrome_trace
+
+            write_chrome_trace(spans, os.path.join(out_dir, "spans.json"))
         if logger:
             logger.close()
 
     return VORun(
         poses=poses_arr, gt_poses=gt_arr, frame_stats=stats, frames_per_sec=fps,
         frame_seconds=frame_seconds, ate=ate, engine=engine, state=state,
-        chunk_seconds=chunk_seconds, preload_misses=preload_misses,
+        chunk_seconds=chunk_seconds, preload_misses=preload_misses, spans=spans,
     )

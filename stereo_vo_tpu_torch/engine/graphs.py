@@ -59,6 +59,12 @@ launches, every replay) to a counter, with one more slot per conditional
 body that counts the body's runs (a WHILE body's trips).
 ``Program.flush_launches`` reads the counter once into the wrappers' counts
 and ``Program.runs``. No count is read on the host per frame.
+
+Device stamps (``utils/profiling.py::Recorder``, ``csrc/graph_cond.cu``'s
+``svo_stamp``) are one-thread kernels on the current stream, so a capture
+takes them as ordinary kernel nodes, at the graph's own level or inside an
+IF or WHILE body. A body that warming throws away (``discarding``) records
+none, as its launches are not counted.
 """
 
 from __future__ import annotations
@@ -159,7 +165,13 @@ class _CondLib:
         self.end.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p]
         versions = lib.svo_cuda_versions
         versions.argtypes = [ctypes.POINTER(ctypes.c_int), ctypes.POINTER(ctypes.c_int)]
-        for fn in (self.begin, self.set, self.end, versions):
+        # the span recorder's device stamps (utils/profiling.py::Recorder)
+        self.stamp, self.tick = lib.svo_stamp, lib.svo_timer_tick
+        self.stamp.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+                               ctypes.c_longlong, ctypes.c_longlong, ctypes.c_void_p,
+                               ctypes.c_longlong]
+        self.tick.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int]
+        for fn in (self.begin, self.set, self.end, versions, self.stamp, self.tick):
             fn.restype = ctypes.c_int
         runtime, driver = ctypes.c_int(0), ctypes.c_int(0)
         _raise_on(versions(ctypes.byref(runtime), ctypes.byref(driver)), "cuda versions")
@@ -205,9 +217,26 @@ class _Context(threading.local):
     warming: bool = False                  # run both sides of every cond
     depth: int = 0                         # conditional bodies open around a capture
     reads: int = 0                         # predicates read on the host
+    discarding: int = 0                    # warming bodies whose run is thrown away
 
 
 _ctx = _Context()
+
+
+def discarding() -> bool:
+    """Whether the code running now is a body that warming runs and throws
+    away (the untaken side of a ``cond``, the trip of a loop that takes
+    none): what it launches is not counted and it records no span."""
+    return _ctx.discarding > 0
+
+
+@contextlib.contextmanager
+def _discarded():
+    _ctx.discarding += 1
+    try:
+        yield
+    finally:
+        _ctx.discarding -= 1
 
 
 def _check_pred(pred: torch.Tensor, what: str) -> torch.Tensor:
@@ -265,7 +294,8 @@ def cond(pred: torch.Tensor, true_fn: Callable, false_fn: Callable, operands=())
     if not _ctx.warming:
         return true_fn(*operands) if take else false_fn(*operands)
     before = _counts()
-    other = _nested(pred.device, false_fn if take else true_fn, *operands)
+    with _discarded():
+        other = _nested(pred.device, false_fn if take else true_fn, *operands)
     _set_counts(before)
     out = _nested(pred.device, true_fn if take else false_fn, *operands)
     _check_same(out, other, _name(true_fn))
@@ -291,7 +321,8 @@ def while_loop(cond_fn: Callable, body_fn: Callable, carry):
         trips += 1
     if _ctx.warming and trips == 0:
         before = _counts()
-        _check_carry(want, _nested(pred.device, body_fn, carry), what)
+        with _discarded():
+            _check_carry(want, _nested(pred.device, body_fn, carry), what)
         _set_counts(before)
     return carry
 

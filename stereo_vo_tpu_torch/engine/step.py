@@ -28,10 +28,21 @@ bit for bit from the frame index (``frontend/prng.py``);
 runs as one batched pass, then each frame is one step on its slice; on the
 card, one replay of the step program per frame, with no host read between
 frames, and the state and the stacked outputs handed out once at the end.
+
+``VOEngine(..., trace=True)`` records the engine's spans
+(``utils/profiling.py::Recorder``): host spans around ``step``
+(``step.enqueue``), ``bootstrap`` and ``replay_chunk``, and device stamps
+around each call's device work (``step``, ``bootstrap``, ``preprocess``)
+and, inside the step graph and its conditional bodies, around
+``track_step`` (``track``), the PnP body (``pnp``), the keyframe-prep body
+(``kf_prep``) and ``bundle_adjust`` in the solve body (``ba``).
+``trace_records()`` drains them. With ``trace=False`` (the default) no stamp
+is captured or launched.
 """
 
 from __future__ import annotations
 
+import contextlib
 import functools
 from typing import Dict, NamedTuple, Optional, Tuple
 
@@ -61,6 +72,7 @@ from stereo_vo_tpu_torch.frontend.triangulate import triangulate_from_disparitie
 from stereo_vo_tpu_torch.ops.pyramid import build_pyramid
 from stereo_vo_tpu_torch.ops.shi_tomasi import count_quality_peaks, min_eig_response
 from stereo_vo_tpu_torch.ops.stereo_bm import stereo_bm_at
+from stereo_vo_tpu_torch.utils.profiling import Recorder, Trace
 
 
 class VOState(NamedTuple):
@@ -144,6 +156,8 @@ def _stereo_weight(fb: float, z: torch.Tensor, sigma_d: float) -> torch.Tensor:
 # the torch.profiler range around the frames of a replayed chunk, from the
 # first frame's step to the last one's
 CHUNK_RANGE = "VOEngine.replay_chunk.frames"
+# a device span site with tracing off
+_NO_SPAN = contextlib.nullcontext()
 
 
 class VOEngine:
@@ -158,11 +172,15 @@ class VOEngine:
     A state or output that ``step`` hands out in graph mode is the
     program's buffers: valid until the engine's next call.
 
+    ``trace``: record the engine's spans (module docstring) in
+    ``recorder``, drained by ``trace_records()``; ``recorder`` is None
+    without it.
+
     TF32 is switched off for both matmuls and cuDNN: the port matches the
     reference in float32."""
 
     def __init__(self, config: PipelineConfig, image_shape: Tuple[int, int],
-                 device="cuda", graphs: Optional[bool] = None):
+                 device="cuda", graphs: Optional[bool] = None, trace: bool = False):
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
         self.config = config
@@ -174,6 +192,22 @@ class VOEngine:
             raise ValueError(f"graphs=True needs a CUDA device, not {self.device}")
         self.graphs = bool(graphs)
         self.programs: Dict[tuple, graphs_module.Program] = {}
+        self.recorder: Optional[Recorder] = Recorder(self.device) if trace else None
+
+    def trace_records(self) -> Trace:
+        """The spans recorded since the last call (``utils/profiling.py::
+        Trace``: each with its call, frame, parent and self time, the records
+        dropped, the device's idle time by host span), on the host clock;
+        one synchronize and one read back. Call it between the engine's
+        calls."""
+        if self.recorder is None:
+            raise ValueError("tracing is off: build the engine with trace=True")
+        return self.recorder.drain()
+
+    def _span(self, name: str, frame=None):
+        """The device span ``name`` around a block (nothing without tracing)."""
+        rec = self.recorder
+        return _NO_SPAN if rec is None else rec.span(name, frame)
 
     def flush_launches(self) -> None:
         """Add what the programs' replays launched (counted on the device)
@@ -249,6 +283,13 @@ class VOEngine:
     def bootstrap(self, state: VOState, left, right) -> Tuple[VOState, StepOutput]:
         """First-keyframe path: triangulate the detections at the identity pose
         and seed tracker + window."""
+        rec = self.recorder
+        if rec is None:
+            return self._bootstrap(state, left, right)
+        return rec.call("bootstrap", "bootstrap", state.frame_idx, self._bootstrap, state, left,
+                        right)
+
+    def _bootstrap(self, state: VOState, left, right) -> Tuple[VOState, StepOutput]:
         cfg = self.config
         f_cap = cfg.backend.feature_capacity
         left_f = self._image(left)
@@ -314,9 +355,10 @@ class VOEngine:
         """PnP-RANSAC on the tracked features against the window's
         landmarks, seeded by the device frame index."""
         cfg = self.config
-        world_pts = lm_pos[feat_ids.to(torch.int64)]
-        return pnp_ransac(world_pts, feat_xy, feat_valid, cfg.camera, prev_pose, frame_idx,
-                          cfg.frontend, hyp_idx=hyp_idx)
+        with self._span("pnp"):
+            world_pts = lm_pos[feat_ids.to(torch.int64)]
+            return pnp_ransac(world_pts, feat_xy, feat_valid, cfg.camera, prev_pose, frame_idx,
+                              cfg.frontend, hyp_idx=hyp_idx)
 
     def _skip_pnp(self, lm_pos, feat_ids, feat_xy, feat_valid, prev_pose, frame_idx,
                   hyp_idx=None) -> PnPResult:
@@ -331,57 +373,58 @@ class VOEngine:
         triangulate, window update. Returns ``(window, det_xy, inlier_valid,
         new_ids, new_ids_valid, live)``, ``live`` the window's live-landmark
         count that chooses the solve."""
-        cfg = self.config
-        f_cap = cfg.backend.feature_capacity
-        det_xy, det_valid = detect_features(left_f, cfg.frontend, resp=resp)
-        # keyframe observations are the PnP inliers only
-        inlier_valid = feat_valid & inliers
-        new_valid = dedup_new_features(
-            det_xy, det_valid, feat_xy, inlier_valid, cfg.frontend.min_distance)
-        # sparse BM at the new detections and at the tracked inliers
-        n_det = det_xy.shape[0]
-        disp_cat = self._bm(
-            left_f, right_f, torch.cat([det_xy, feat_xy], dim=0),
-            torch.cat([new_valid, inlier_valid], dim=0),
-            compact_slots=cfg.frontend.bm_compact_slots,
-        )
-        disp_new, disp_trk = disp_cat[:n_det], disp_cat[n_det:]
-        p3_new, tri_valid = triangulate_from_disparities(
-            disp_new, det_xy, new_valid, cfg.camera, pose)
+        with self._span("kf_prep"):
+            cfg = self.config
+            f_cap = cfg.backend.feature_capacity
+            det_xy, det_valid = detect_features(left_f, cfg.frontend, resp=resp)
+            # keyframe observations are the PnP inliers only
+            inlier_valid = feat_valid & inliers
+            new_valid = dedup_new_features(
+                det_xy, det_valid, feat_xy, inlier_valid, cfg.frontend.min_distance)
+            # sparse BM at the new detections and at the tracked inliers
+            n_det = det_xy.shape[0]
+            disp_cat = self._bm(
+                left_f, right_f, torch.cat([det_xy, feat_xy], dim=0),
+                torch.cat([new_valid, inlier_valid], dim=0),
+                compact_slots=cfg.frontend.bm_compact_slots,
+            )
+            disp_new, disp_trk = disp_cat[:n_det], disp_cat[n_det:]
+            p3_new, tri_valid = triangulate_from_disparities(
+                disp_new, det_xy, new_valid, cfg.camera, pose)
 
-        sigma_d = cfg.backend.stereo_prior_sigma_px
-        fb = cfg.camera.focal * cfg.camera.baseline
+            sigma_d = cfg.backend.stereo_prior_sigma_px
+            fb = cfg.camera.focal * cfg.camera.baseline
 
-        def prior_weight(p3, ok):
-            z = geo.pose_apply(pose[None, :], p3)[:, 2]
-            if sigma_d <= 0:
-                return torch.zeros_like(z)
-            return torch.where(ok, _stereo_weight(fb, z, sigma_d), 0.0)
+            def prior_weight(p3, ok):
+                z = geo.pose_apply(pose[None, :], p3)[:, 2]
+                if sigma_d <= 0:
+                    return torch.zeros_like(z)
+                return torch.where(ok, _stereo_weight(fb, z, sigma_d), 0.0)
 
-        w_new = prior_weight(p3_new, tri_valid)
+            w_new = prior_weight(p3_new, tri_valid)
 
-        # tracked-landmark prior refresh, gated against the existing prior
-        p3_trk, trk_ok = triangulate_from_disparities(
-            disp_trk, feat_xy, inlier_valid, cfg.camera, pose)
-        ids64 = feat_ids.to(torch.int64)
-        prior_old = window.lm_prior[ids64]
-        w_old = window.lm_prior_w[ids64]
-        dist = _norm2(p3_trk - prior_old)
-        z_trk = geo.pose_apply(pose[None, :], p3_trk)[:, 2]
-        consistent = (w_old <= 0) | (dist < 0.25 * torch.clamp(z_trk, min=1.0))
-        w_trk = torch.where(consistent, prior_weight(p3_trk, trk_ok), 0.0)
-        if not cfg.backend.stereo_prior_refresh:
-            w_trk = torch.zeros_like(w_trk)
+            # tracked-landmark prior refresh, gated against the existing prior
+            p3_trk, trk_ok = triangulate_from_disparities(
+                disp_trk, feat_xy, inlier_valid, cfg.camera, pose)
+            ids64 = feat_ids.to(torch.int64)
+            prior_old = window.lm_prior[ids64]
+            w_old = window.lm_prior_w[ids64]
+            dist = _norm2(p3_trk - prior_old)
+            z_trk = geo.pose_apply(pose[None, :], p3_trk)[:, 2]
+            consistent = (w_old <= 0) | (dist < 0.25 * torch.clamp(z_trk, min=1.0))
+            w_trk = torch.where(consistent, prior_weight(p3_trk, trk_ok), 0.0)
+            if not cfg.backend.stereo_prior_refresh:
+                w_trk = torch.zeros_like(w_trk)
 
-        window, new_ids, new_ids_valid = add_keyframe(
-            window, cfg.backend, pose,
-            feat_xy, feat_ids, inlier_valid,
-            _pad_to(det_xy, f_cap), _pad_to(p3_new, f_cap),
-            _pad_to(tri_valid, f_cap), _pad_to(w_new, f_cap),
-            tracked_prior_pos=p3_trk, tracked_prior_w=w_trk,
-        )
-        live = torch.sum(window.lm_valid, dtype=torch.int32)
-        return window, det_xy, inlier_valid, new_ids, new_ids_valid, live
+            window, new_ids, new_ids_valid = add_keyframe(
+                window, cfg.backend, pose,
+                feat_xy, feat_ids, inlier_valid,
+                _pad_to(det_xy, f_cap), _pad_to(p3_new, f_cap),
+                _pad_to(tri_valid, f_cap), _pad_to(w_new, f_cap),
+                tracked_prior_pos=p3_trk, tracked_prior_w=w_trk,
+            )
+            live = torch.sum(window.lm_valid, dtype=torch.int32)
+            return window, det_xy, inlier_valid, new_ids, new_ids_valid, live
 
     def _skip_prep(self, left_f, right_f, pose, inliers, feat_xy, feat_ids, feat_valid,
                    window: WindowState, resp):
@@ -397,7 +440,8 @@ class VOEngine:
         opt_pose, slots, (ba_c0, ba_c1, ba_iters, n_new_landmarks))``."""
         cfg = self.config
         f_cap = cfg.backend.feature_capacity
-        window, ba_stats = bundle_adjust(window, cfg.camera, cfg.backend, compact=compact)
+        with self._span("ba"):
+            window, ba_stats = bundle_adjust(window, cfg.camera, cfg.backend, compact=compact)
         opt_pose = newest_pose(window)
 
         # tracker re-init slots: inlier tracked + new features, valid first;
@@ -465,9 +509,16 @@ class VOEngine:
         each frame is one replay of the step program, its slices copied into
         the program's inputs, and nothing is read back; the state handed out
         is a copy, so it outlives the engine's next call."""
-        lefts_f = self._image(lefts)
-        rights_f = self._image(rights)
-        pyrs, n_peaks, resps = self._preprocess(lefts_f)
+        rec = self.recorder
+        if rec is None:
+            return self._replay_chunk(state, lefts, rights)
+        return rec.call("replay_chunk", None, None, self._replay_chunk, state, lefts, rights)
+
+    def _replay_chunk(self, state: VOState, lefts, rights):
+        with self._span("preprocess", state.frame_idx):
+            lefts_f = self._image(lefts)
+            rights_f = self._image(rights)
+            pyrs, n_peaks, resps = self._preprocess(lefts_f)
         k_frames = lefts_f.shape[0]
         summaries = torch.empty((k_frames, 7 + len(SUMMARY_KEYS)), dtype=torch.float32,
                                 device=self.device)
@@ -487,6 +538,13 @@ class VOEngine:
         """One frame. ``pnp_indices [n_hyp - 1, k]`` replaces the seeded PnP
         hypothesis draw when given; ``precomp = (pyramid, n_peaks, resp)``
         supplies the frame's preprocessing when ``replay_chunk`` batched it."""
+        rec = self.recorder
+        if rec is None:
+            return self._step(state, left, right, pnp_indices, precomp)
+        return rec.call("step.enqueue", "step", state.frame_idx, self._step, state, left, right,
+                        pnp_indices, precomp)
+
+    def _step(self, state: VOState, left, right, pnp_indices, precomp):
         frame = (self._upload(left), self._upload(right),
                  None if precomp is None else (tuple(precomp[0]), precomp[1], precomp[2]),
                  pnp_indices)
@@ -512,7 +570,8 @@ class VOEngine:
 
         # track unconditionally; a skipped frame discards the update below
         tr = state.tracker
-        tracked, stats = track_step(tr, pyr, fc)
+        with self._span("track"):
+            tracked, stats = track_step(tr, pyr, fc)
         accept = has_det & ((stats.av_parallax > fc.parallax_thresh)
                             | (stats.percent_lost >= fc.lost_thresh))
 

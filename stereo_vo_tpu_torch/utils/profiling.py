@@ -1,9 +1,26 @@
 """Profiling utilities (counterpart of ``stereo_vo_tpu/utils/profiling.py``).
 
-Host-side stage timers for the driver loop, and a context manager around
-``torch.profiler`` for device traces. ``summarize_trace`` sums the profile by
-kernel name: on a CUDA device, the self device time of each kernel; on the
-CPU, where there are no kernels, the self CPU time of each operator.
+The engine's span recorder (``Recorder``, ``VOEngine(..., trace=True)``),
+and a context manager around ``torch.profiler`` for device traces.
+``summarize_trace`` sums the profile by kernel name: on a CUDA device, the
+self device time of each kernel; on the CPU, where there are no kernels, the
+self CPU time of each operator.
+
+The recorder keeps two kinds of span, each named once in ``SPANS``. Host
+spans read ``time.perf_counter_ns()`` around an engine call. Device spans
+are stamps in the device's stream order: a one-thread kernel
+(``csrc/graph_cond.cu``'s ``svo_stamp``) that reads ``%globaltimer`` and
+appends a record to a ring on the device, captured into the step graph like
+any kernel, inside its IF and WHILE bodies too. Nothing is read back per
+frame: ``Recorder.drain`` (``VOEngine.trace_records``) synchronizes, reads
+the ring once, maps the device clock onto ``perf_counter_ns()`` (a stamp
+between two host reads around a synchronize, the shortest of
+``CALIBRATION_SAMPLES`` round trips, at construction and at every drain,
+interpolated between the two) and pairs the records into spans, each with
+its call, the state's frame index at the call's start, its parent and its
+self time, and the device's idle time split by the host span the host was
+in. On the CPU a device stamp is a ``perf_counter_ns()`` read, since the
+work runs synchronously.
 
     with device_trace("out/trace") as prof:
         engine.step(state, left, right)
@@ -33,39 +50,399 @@ only).
 
 from __future__ import annotations
 
+import bisect
 import collections
 import contextlib
+import dataclasses
+import json
 import os
 import statistics
 import time
 from typing import Dict, List, Optional, Tuple
 
 
-class StageTimer:
-    """Accumulating wall-clock timer for named host-side stages."""
+HOST, DEVICE = "host", "device"
 
-    def __init__(self):
-        self.totals: Dict[str, float] = collections.defaultdict(float)
-        self.counts: Dict[str, int] = collections.defaultdict(int)
+# every span the engine records, named once: (clock, name) -> the span of the
+# same call it nests in. A host span nests in the host span of the call that
+# made it, if any (``step.enqueue`` inside ``replay_chunk``). PERF.md §3 names
+# the metric that reads each one.
+SPANS = {
+    (HOST, "replay_chunk"): None,                  # the whole call
+    (HOST, "step.enqueue"): (HOST, "replay_chunk"),  # VOEngine.step, entry to return
+    (HOST, "bootstrap"): None,                     # VOEngine.bootstrap, entry to return
+    (DEVICE, "step"): (HOST, "step.enqueue"),      # input copies to the graph's last node
+    (DEVICE, "bootstrap"): (HOST, "bootstrap"),    # bootstrap's eager device work
+    (DEVICE, "preprocess"): (HOST, "replay_chunk"),  # the chunk's batched preprocessing
+    (DEVICE, "track"): (DEVICE, "step"),           # track_step
+    (DEVICE, "pnp"): (DEVICE, "step"),             # the PnP body
+    (DEVICE, "kf_prep"): (DEVICE, "step"),         # the keyframe-prep body
+    (DEVICE, "ba"): (DEVICE, "step"),              # bundle_adjust in the solve body
+}
+_KEYS = tuple(SPANS)
+# a span's record codes: 2 k at its begin, 2 k + 1 at its end
+_CODE = {key: 2 * k for k, key in enumerate(_KEYS)}
+# device records the ring holds between drains: a 10 s window is about 2,000
+# streamed steps or 1,900 replayed frames at about 10 records each
+RING_RECORDS = 1 << 17
+# calibration round trips at construction and at each drain
+CALIBRATION_SAMPLES = 32
+
+
+@dataclasses.dataclass
+class Span:
+    """One span on the host clock (``perf_counter_ns()``): ``call`` is the
+    engine call it belongs to (``step``, ``bootstrap``, ``replay_chunk``,
+    numbered from 1 by the recorder), ``frame`` the state's frame index when
+    that call began (-1 where none was given); ``parent`` the index of the
+    span it nests in; ``self_ns`` its duration less what its children on
+    its own clock cover (the device work a host span enqueued runs on
+    another timeline)."""
+    clock: str
+    name: str
+    call: int
+    frame: int
+    begin_ns: int
+    end_ns: int
+    parent: Optional[int] = None
+    self_ns: int = 0
+
+    @property
+    def ms(self) -> float:
+        return (self.end_ns - self.begin_ns) / 1e6
+
+
+@dataclasses.dataclass
+class Trace:
+    """What ``Recorder.drain`` returns: the spans in order of their begin,
+    the device records the ring had no slot for, the window (the first host
+    span's begin to the last device span's end), the device's busy time in
+    it (the union of the device spans that nest in no device span: ``step``,
+    ``bootstrap``, ``preprocess``) and its idle time, by the innermost
+    host span the host was in at each gap's middle or ``caller`` where it
+    was in none, and the calibration's error (half its round trip; 0 on the
+    CPU)."""
+    spans: List[Span]
+    dropped: int = 0
+    window_ns: Tuple[int, int] = (0, 0)
+    busy_ns: int = 0
+    idle_ns: Dict[str, int] = dataclasses.field(default_factory=dict)
+    calibration_error_ns: int = 0
+
+    def named(self, name: str, clock: str = DEVICE) -> List[Span]:
+        return [s for s in self.spans if s.name == name and s.clock == clock]
+
+    @property
+    def idle_pct(self) -> Optional[float]:
+        """100 x the window's share outside the device spans."""
+        width = self.window_ns[1] - self.window_ns[0]
+        return 100.0 * (width - self.busy_ns) / width if width > 0 else None
+
+
+@dataclasses.dataclass
+class Calibration:
+    """A device clock reading and the host clock at the same moment, within
+    ``error_ns``."""
+    device_ns: int
+    host_ns: int
+    error_ns: int
+
+
+_stamp_fn = None
+
+
+def device_stamp(ring, ctl, code: int, frame=None, call: int = -1) -> None:
+    """One stamp kernel on the current stream (``svo_stamp``), a kernel node
+    when the stream captures; ``call`` >= 0 opens a call with ``frame`` (a
+    0-d int32 tensor on the device, or None). Counted in
+    ``device_stamp.launches``. A streamed step makes two on the host, so the
+    library's function is looked up once and the stream is read raw."""
+    global _stamp_fn
+    import torch
+
+    if _stamp_fn is None:
+        from stereo_vo_tpu_torch.engine.graphs import cond_lib
+
+        _stamp_fn = cond_lib().stamp
+    rc = _stamp_fn(torch._C._cuda_getCurrentRawStream(ring.device.index), ring.data_ptr(),
+                   ctl.data_ptr(), ring.shape[0], code,
+                   None if frame is None else frame.data_ptr(), call)
+    if rc != 0:
+        raise RuntimeError(f"device stamp failed: CUDA error {rc}")
+    device_stamp.launches += 1
+
+
+device_stamp.launches = 0
+
+
+def timer_tick(device, reads: int = 1 << 16) -> Dict[str, float]:
+    """The resolution of the device clock the stamps read (``%globaltimer``)
+    on a CUDA ``device``: one thread reads it ``reads`` times; ``tick_ns``
+    the smallest step between two readings that differ, ``mean_step_ns``
+    the mean one, ``steps`` how many it saw."""
+    import torch
+
+    from stereo_vo_tpu_torch.engine.graphs import _raise_on, cond_lib
+
+    out = torch.zeros(3, dtype=torch.int64, device=device)
+    stream = torch.cuda.current_stream(out.device)
+    _raise_on(cond_lib().tick(stream.cuda_stream, out.data_ptr(), reads), "timer tick")
+    best, steps, elapsed = out.tolist()
+    return {"tick_ns": best, "steps": steps, "mean_step_ns": elapsed / steps if steps else 0.0}
+
+
+class Recorder:
+    """The spans of one engine (module docstring). ``call`` runs an engine
+    call inside its host span and, given a device span, inside that too,
+    opened with the call's number and frame; ``span`` is a device span
+    inside the call running now; ``drain`` returns the spans since the last
+    drain. On a CUDA device the ring holds ``capacity`` records; on the CPU
+    as many are kept. Records past it are counted as dropped."""
+
+    def __init__(self, device, capacity: int = RING_RECORDS):
+        import torch
+
+        from stereo_vo_tpu_torch.engine.graphs import discarding
+
+        self.device = torch.device(device)
+        self.capacity = int(capacity)
+        self.on_card = self.device.type == "cuda"
+        self._discarding = discarding
+        self._calls = 0
+        self._open: List[int] = []        # the calls running on the host
+        self._host: List[tuple] = []      # (ns, code, call, parent call)
+        if self.on_card:
+            def zeros(*shape):
+                return torch.zeros(shape, dtype=torch.int64, device=self.device)
+
+            # ctl: the next slot, the open call, its frame
+            self._ring, self._ctl = zeros(self.capacity, 4), zeros(3)
+            self._cal_ring, self._cal_ctl = zeros(CALIBRATION_SAMPLES, 4), zeros(3)
+            self.calibration = self._calibrate()
+        else:
+            self._records: List[tuple] = []   # (ns, code, frame, call)
+            self._made = 0
+            self._current = (-1, 0)
+
+    # ------------------------------------------------------------------
+    def call(self, host: str, device: Optional[str], frame, fn, *args):
+        """``fn(*args)`` inside the host span ``host`` and, given ``device``,
+        the device span ``device`` opened with this call's number and
+        ``frame`` (the state's 0-d frame index)."""
+        self._calls += 1
+        call = self._calls
+        parent = self._open[-1] if self._open else 0
+        code = _CODE[(HOST, host)]
+        self._host.append((time.perf_counter_ns(), code, call, parent))
+        self._open.append(call)
+        try:
+            if device is None:
+                out = fn(*args)
+            else:
+                with self.span(device, frame):
+                    out = fn(*args)
+        finally:
+            self._open.pop()
+        self._host.append((time.perf_counter_ns(), code + 1, call, parent))
+        return out
 
     @contextlib.contextmanager
-    def stage(self, name: str):
-        t0 = time.perf_counter()
-        try:
-            yield
-        finally:
-            self.totals[name] += time.perf_counter() - t0
-            self.counts[name] += 1
+    def span(self, device: str, frame=None):
+        """The device span ``device`` around the work enqueued inside the
+        block; given ``frame``, it opens the running call's number and that
+        frame for the stamps after it (captured ones among them)."""
+        code = _CODE[(DEVICE, device)]
+        if frame is None:
+            self._stamp(code)
+        else:
+            self._stamp(code, frame, self._open[-1] if self._open else 0)
+        yield
+        self._stamp(code + 1)
 
-    def summary(self) -> Dict[str, dict]:
-        return {
-            k: {
-                "total_s": round(v, 4),
-                "count": self.counts[k],
-                "mean_ms": round(1000 * v / max(self.counts[k], 1), 3),
-            }
-            for k, v in sorted(self.totals.items(), key=lambda kv: -kv[1])
-        }
+    def _stamp(self, code: int, frame=None, call: int = -1) -> None:
+        if self._discarding():
+            return
+        if self.on_card:
+            device_stamp(self._ring, self._ctl, code, frame, call)
+            return
+        if call >= 0:
+            self._current = (int(frame) if frame is not None else -1, call)
+        self._made += 1
+        if self._made <= self.capacity:
+            self._records.append((time.perf_counter_ns(), code, *self._current))
+
+    # ------------------------------------------------------------------
+    def drain(self) -> Trace:
+        """The spans recorded since the last drain (``Trace``), on the host
+        clock; between calls only. On the card: one synchronize, one read of
+        the ring, the cursor reset, a new calibration."""
+        if self._open:
+            raise RuntimeError("drain between the engine's calls, not inside one")
+        host, self._host = self._host, []
+        if not self.on_card:
+            records, self._records = self._records, []
+            made, self._made = self._made, 0
+            return assemble(records, host, dropped=max(made - self.capacity, 0))
+        import torch
+
+        torch.cuda.synchronize(self.device)
+        made = int(self._ctl[0])
+        rows = self._ring[:min(made, self.capacity)].cpu().numpy()
+        self._ctl[:1].zero_()
+        before, self.calibration = self.calibration, self._calibrate()
+        rows[:, 0] = _to_host(rows[:, 0], before, self.calibration)
+        return assemble(rows.tolist(), host, dropped=max(made - self.capacity, 0),
+                        calibration_error_ns=max(before.error_ns, self.calibration.error_ns))
+
+    def _calibrate(self) -> Calibration:
+        """A stamp between two host reads around a synchronize, repeated:
+        the sample with the shortest round trip, its device reading against
+        the middle of its host reads."""
+        import torch
+
+        self._cal_ctl.zero_()
+        rounds = []
+        for _ in range(CALIBRATION_SAMPLES):
+            torch.cuda.synchronize(self.device)
+            h0 = time.perf_counter_ns()
+            device_stamp(self._cal_ring, self._cal_ctl, 0)
+            torch.cuda.synchronize(self.device)
+            rounds.append((h0, time.perf_counter_ns()))
+        device_ns = self._cal_ring[:, 0].tolist()
+        k = min(range(len(rounds)), key=lambda i: rounds[i][1] - rounds[i][0])
+        h0, h1 = rounds[k]
+        return Calibration(device_ns[k], (h0 + h1) // 2, (h1 - h0 + 1) // 2)
+
+
+def _to_host(ns, a: Calibration, b: Calibration):
+    """Device readings ``ns`` (an int64 array) on the host clock: the offset
+    interpolated between calibrations ``a`` and ``b`` by device time (held at
+    the nearer one outside them)."""
+    import numpy as np
+
+    off_a, off_b = a.host_ns - a.device_ns, b.host_ns - b.device_ns
+    width = b.device_ns - a.device_ns
+    if width <= 0:
+        return ns + off_b
+    w = np.clip((ns - a.device_ns) / width, 0.0, 1.0)
+    return ns + np.round(off_a + (off_b - off_a) * w).astype(np.int64)
+
+
+def _covered(begin: int, end: int, intervals) -> int:
+    """The length of ``[begin, end]`` that the union of ``intervals`` covers."""
+    return sum(b - a for a, b in _merged((max(a, begin), min(b, end)) for a, b in intervals
+                                         if b > begin and a < end))
+
+
+def _merged(intervals) -> List[Tuple[int, int]]:
+    out: List[List[int]] = []
+    for a, b in sorted(intervals):
+        if out and a <= out[-1][1]:
+            out[-1][1] = max(out[-1][1], b)
+        else:
+            out.append([a, b])
+    return [(a, b) for a, b in out]
+
+
+def assemble(device_records, host_records, dropped: int = 0,
+             calibration_error_ns: int = 0) -> Trace:
+    """A ``Trace`` from records on the host clock: ``device_records`` rows
+    ``(ns, code, frame, call)``, ``host_records`` rows ``(ns, code, call,
+    parent call)`` (0: none). A begin whose end is missing (a record
+    dropped) makes no span."""
+    opened: Dict[tuple, tuple] = {}
+    raw = []
+    for rows, clock in ((device_records, DEVICE), (host_records, HOST)):
+        for ns, code, a, b in rows:
+            name = _KEYS[code // 2][1]
+            key = (clock, name, a if clock == HOST else b)
+            if code % 2 == 0:
+                opened[key] = (ns, a, b)
+                continue
+            start = opened.pop(key, None)
+            if start is None:
+                continue
+            t0, a0, b0 = start
+            if clock == DEVICE:
+                raw.append((t0, ns, clock, name, b0, a0, SPANS[(clock, name)]))
+            else:
+                raw.append((t0, ns, clock, name, a0, -1, b0))
+    raw.sort(key=lambda r: (r[0], r[2] == DEVICE))
+    frames: Dict[int, int] = {}
+    for r in raw:
+        if r[2] == DEVICE and r[5] >= 0:
+            frames.setdefault(r[4], r[5])
+    spans = [Span(clock, name, call, frame if clock == DEVICE else frames.get(call, -1), t0, t1)
+             for t0, t1, clock, name, call, frame, _ in raw]
+    index = {(s.clock, s.name, s.call): k for k, s in enumerate(spans)}
+    host_call = {s.call: k for k, s in enumerate(spans) if s.clock == HOST}
+    children: List[List[int]] = [[] for _ in spans]
+    for k, (s, r) in enumerate(zip(spans, raw)):
+        up = r[6]
+        s.parent = (host_call.get(up) if s.clock == HOST
+                    else None if up is None else index.get((*up, s.call)))
+        if s.parent is not None and spans[s.parent].clock == s.clock:
+            children[s.parent].append(k)
+    for s, kids in zip(spans, children):
+        s.self_ns = s.end_ns - s.begin_ns - _covered(
+            s.begin_ns, s.end_ns, [(spans[j].begin_ns, spans[j].end_ns) for j in kids])
+    trace = Trace(spans, dropped=dropped, calibration_error_ns=calibration_error_ns)
+    _idle(trace)
+    return trace
+
+
+def _idle(trace: Trace) -> None:
+    """The window, the device's busy time and its idle time by host span
+    (``Trace``'s fields), from the spans."""
+    spans = trace.spans
+    device = [(s.begin_ns, s.end_ns) for s in spans if s.clock == DEVICE
+              and (s.parent is None or spans[s.parent].clock == HOST)]
+    host = [s for s in spans if s.clock == HOST]
+    if not device:
+        return
+    t0 = min(s.begin_ns for s in host) if host else min(a for a, _ in device)
+    t1 = max(b for _, b in device)
+    busy = _merged((max(a, t0), min(b, t1)) for a, b in device if b > t0 and a < t1)
+    trace.window_ns, trace.busy_ns = (t0, t1), sum(b - a for a, b in busy)
+    starts = [s.begin_ns for s in host]
+    idle: Dict[str, int] = collections.Counter()
+    edges = [t0] + [x for iv in busy for x in iv] + [t1]
+    for a, b in zip(edges[0::2], edges[1::2]):
+        if b <= a:
+            continue
+        mid = (a + b) // 2
+        where = "caller"
+        # the innermost host span around the middle: the latest to begin,
+        # looked for among the spans of the outermost one begun before it
+        for k in range(bisect.bisect_right(starts, mid) - 1, -1, -1):
+            if host[k].begin_ns <= mid < host[k].end_ns:
+                where = host[k].name
+                break
+            if host[k].parent is None:
+                break
+        idle[where] += b - a
+    trace.idle_ns = dict(idle)
+
+
+def write_chrome_trace(trace: Trace, path: str) -> None:
+    """``trace`` to ``path`` in the Chrome trace format (``chrome://tracing``,
+    ``ui.perfetto.dev``): one complete event per span, microseconds from the
+    first span, host spans on one track and device spans on another, each
+    with its call, frame, parent and self time; ``otherData`` holds the
+    records dropped and the device's idle time by host span."""
+    t0 = min((s.begin_ns for s in trace.spans), default=0)
+    tracks = {HOST: 1, DEVICE: 2}
+    events = [{"ph": "M", "name": "thread_name", "pid": 1, "tid": tid, "args": {"name": clock}}
+              for clock, tid in tracks.items()]
+    for k, s in enumerate(trace.spans):
+        events.append({"ph": "X", "name": s.name, "pid": 1, "tid": tracks[s.clock],
+                       "ts": (s.begin_ns - t0) / 1e3, "dur": (s.end_ns - s.begin_ns) / 1e3,
+                       "args": {"span": k, "call": s.call, "frame": s.frame,
+                                "parent": s.parent, "self_us": s.self_ns / 1e3}})
+    with open(path, "w") as f:
+        json.dump({"traceEvents": events, "displayTimeUnit": "ms",
+                   "otherData": {"dropped": trace.dropped, "idle_ns": trace.idle_ns,
+                                 "calibration_error_ns": trace.calibration_error_ns}}, f)
 
 
 @contextlib.contextmanager

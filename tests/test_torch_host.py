@@ -32,7 +32,7 @@ from stereo_vo_tpu_torch.data.stream import LiveStereoStream
 from stereo_vo_tpu_torch.data.synthetic import SyntheticStereoSequence
 from stereo_vo_tpu_torch.engine.driver import write_world_points
 from stereo_vo_tpu_torch.eval import viz
-from stereo_vo_tpu_torch.utils.profiling import StageTimer, device_trace, summarize_trace
+from stereo_vo_tpu_torch.utils.profiling import Recorder, device_trace, summarize_trace
 
 from torch_port_helpers import (
     SMALL_CONFIG_YAML,
@@ -418,14 +418,25 @@ def test_smoke_fails_without_the_device(capsys):
 
 
 def test_stage_timer_and_trace_summary(tmp_path):
-    timer = StageTimer()
+    """The recorder's host spans, which took the host-stage timer's place,
+    beside ``device_trace`` and ``summarize_trace``: three timed calls each
+    give one host span holding its device span, in order, their durations
+    summing to no more than the block's wall time."""
+    rec = Recorder("cpu")
     a = torch.rand(64, 64)
+    frame = torch.tensor(0, dtype=torch.int32)
+    t0 = time.perf_counter_ns()
     with device_trace(str(tmp_path / "trace")) as prof:
         for _ in range(3):
-            with timer.stage("matmul"):
-                a = torch.tanh(a @ a)
-    summary = timer.summary()
-    assert summary["matmul"]["count"] == 3 and summary["matmul"]["total_s"] >= 0
+            a = rec.call("step.enqueue", "step", frame, lambda x: torch.tanh(x @ x), a)
+    wall = time.perf_counter_ns() - t0
+    trace = rec.drain()
+    host, dev = trace.named("step.enqueue", "host"), trace.named("step")
+    assert [s.call for s in host] == [s.call for s in dev] == [1, 2, 3]
+    assert all(trace.spans[d.parent] is h for h, d in zip(host, dev))
+    assert all(h.begin_ns <= d.begin_ns <= d.end_ns <= h.end_ns for h, d in zip(host, dev))
+    assert 0 < sum(h.end_ns - h.begin_ns for h in host) <= wall
+    assert rec.drain().spans == []
     rows = summarize_trace(prof, top=5)
     assert rows and all(ms >= 0 for ms, _ in rows)
     assert [ms for ms, _ in rows] == sorted((ms for ms, _ in rows), reverse=True)
