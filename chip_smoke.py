@@ -19,9 +19,9 @@ JAX or of the JAX package. Phases, each fatal on failure:
    0 and 5 trips and with the IF's bool false; load the
    photo texture the port ships (``data/grace_hopper.jpg``, no matplotlib on
    the card's machine) and print its shape;
-2. build: compile the six CUDA sources, ``stereo_vo_tpu_torch/csrc/
+2. build: compile the seven CUDA sources, ``stereo_vo_tpu_torch/csrc/
    extract_regions.cu``, ``lk_level.cu``, ``stereo_bm_at.cu``,
-   ``greedy_nms.cu``, ``ba_lm.cu`` and ``graph_cond.cu``, one nvcc each,
+   ``greedy_nms.cu``, ``ba_lm.cu``, ``pnp_hyp.cu`` and ``graph_cond.cu``, one nvcc each,
    started together, and print each build's seconds and what ptxas reports;
 3. region-extraction kernel check: the kernel against its plain PyTorch
    version (``extract_regions_ref``) at the shapes the main path gives it,
@@ -86,6 +86,17 @@ JAX or of the JAX package. Phases, each fatal on failure:
    (``it`` and accepted steps equal); at the first window each kernel's call
    timed beside its plain version, its device time per launch and its bound
    (``ba_damp_reduce`` also beside its Gram as one ``einsum``);
+3f. PnP hypothesis kernel check (``_pnp_hyp_check``): ``pnp_hypotheses``
+   (``csrc/pnp_hyp.cu``) on the card against ``pnp_hypotheses_ref`` on the
+   CPU, from the inputs of every PnP call of phase 4's world streamed
+   eagerly (its accepted frames: 99 samples of 6 of the 448 slots each),
+   held by ``eval.parity.hypothesis_hold`` (ok flags equal, ok poses
+   within ``PNP_POSE_TOL`` plus ``PNP_SPREAD_FACTOR`` times the
+   hypothesis's own one-ulp rounding spread, rounding-decided samples
+   counted), and before the polish bitwise the kernel's arithmetic built
+   for the host (``pnp_hypotheses_host``); at the first call the kernel's
+   call and the plain version's (torch ops on the card) timed, the
+   kernel's device time per launch and its bound;
 4. main path: ``run_vo`` over a 20-frame synthetic KITTI-sized world
    (376x1241, ``kitti00`` intrinsics, default capacities) on ``cuda``, with
    the kernels' launch counters zeroed just before and read just after; it
@@ -95,8 +106,9 @@ JAX or of the JAX package. Phases, each fatal on failure:
    backward), exactly one ``stereo_bm_at`` and one ``greedy_nms`` launch per
    keyframe (bootstrap included), no ``extract_regions`` launch, per solve
    one ``ba_cost`` and ``1 + accepted`` ``ba_build`` launches and as many
-   ``ba_damp_reduce`` as ``ba_step`` launches, and the aligned keyframe
-   ATE; the whole step runs as one CUDA graph whose
+   ``ba_damp_reduce`` as ``ba_step`` launches, one ``pnp_hypotheses``
+   launch per PnP body (per accepted frame: a keyframe, or a frame whose
+   PnP failed), and the aligned keyframe ATE; the whole step runs as one CUDA graph whose
    decisions are conditional nodes (the engine's default on the card) here
    and in every later phase; then (4b), in a child process (a long
    process's profiler drops kernels of the graph's conditional bodies; 4d
@@ -450,6 +462,25 @@ BA_DAMP_OPS_PER_LM = 60
 BA_GRAM_OPS = 6
 BA_STEP_OPS_PER_LM = 40
 BA_COST_OPS_PER_OBS = 45
+# phase 3f: the PnP hypothesis kernel on the card against its plain version
+# on the CPU: tests/test_torch_pnp.py's rule (POSE_TOL, SPREAD_FACTOR), the
+# pose tolerance of the PnP parity tests plus 4 times the hypothesis's own
+# one-ulp rounding spread (the card's sin and cos and the CPU's LAPACK sum
+# order part the two by rounding, and rounding decides an ill-conditioned
+# sample), and at most PNP_DECIDED_MAX of the hypotheses decided by rounding
+# (samples with outliers: the polish cannot fit them)
+PNP_POSE_TOL = 1e-4
+PNP_SPREAD_FACTOR = 4.0
+PNP_DECIDED_MAX = 0.6
+# f32 operations of one hypothesis (its bound), counted from the kernel's
+# loops: the DLT (Householder QR 3,600, the ridge's scale 290, inverse
+# iteration 650, Q z 390, the polar fix of both signs 1,200, the rest 270),
+# and each polish iteration (12 Jacobian rows 2,760, J^T J and -J^T r
+# 1,010, the LU solve and the retraction 280)
+PNP_DLT_OPS = 6400
+PNP_POLISH_OPS = 4050
+# bytes a hypothesis reads (6 int64 indices, 6 points and pixels) and writes
+PNP_BYTES_PER_HYP = 48 + 6 * 20 + 29
 # phase 3b: the level pass with every other slot inactive (the tracker's
 # capacity at full width), at these of LK_SHAPES
 LK_INACTIVE_SHAPES = ("l0_56_n160", "l0_56_n448")
@@ -583,6 +614,7 @@ def _lk_passes(cfg, steps) -> int:
 def _wrappers() -> dict:
     """Each hand kernel's wrapper, by the name the kernels line gives it."""
     from stereo_vo_tpu_torch.backend.schur import ba_build, ba_cost, ba_damp_reduce, ba_step
+    from stereo_vo_tpu_torch.frontend.pnp import pnp_hypotheses
     from stereo_vo_tpu_torch.ops.lk import lk_level_pass
     from stereo_vo_tpu_torch.ops.regions import extract_regions
     from stereo_vo_tpu_torch.ops.shi_tomasi import greedy_nms
@@ -591,7 +623,7 @@ def _wrappers() -> dict:
     return {"lk_level_pass": lk_level_pass, "stereo_bm_at": stereo_bm_at,
             "extract_regions": extract_regions, "greedy_nms": greedy_nms,
             "ba_build": ba_build, "ba_damp_reduce": ba_damp_reduce, "ba_step": ba_step,
-            "ba_cost": ba_cost}
+            "ba_cost": ba_cost, "pnp_hypotheses": pnp_hypotheses}
 
 
 def _zero_launches() -> None:
@@ -609,16 +641,21 @@ def _check_launches(what, launches, lk_want, keyframes, steps=()) -> None:
     adjustment (a keyframe among ``steps``, the frames after a run's
     bootstrap) one ``ba_cost`` launch and ``1 + accepted`` ``ba_build``
     launches, and as many ``ba_damp_reduce`` as ``ba_step`` launches, two a
-    trip of its LM loop (exactly per solve in phase 4d)."""
+    trip of its LM loop (exactly per solve in phase 4d); and one
+    ``pnp_hypotheses`` launch per PnP body among ``steps`` (an accepted
+    frame: a keyframe, or a frame whose PnP failed)."""
     lk, bm, er = launches["lk_level_pass"], launches["stereo_bm_at"], launches["extract_regions"]
     nms = launches["greedy_nms"]
     solves = sum(bool(s["is_keyframe"]) for s in steps)
     accepted = sum(int(s["ba_iterations"]) for s in steps if s["is_keyframe"])
     ba = {k: launches[k] for k in ("ba_cost", "ba_build", "ba_damp_reduce", "ba_step")}
+    pnp = launches["pnp_hypotheses"]
+    bodies = sum(bool(s["is_keyframe"]) or not s["pnp_ok"] for s in steps)
     _log(f"{what}: lk_level_pass launches {lk} for {lk_want} LK level passes, "
          f"stereo_bm_at launches {bm} and greedy_nms launches {nms} for {keyframes} keyframes, "
          f"extract_regions launches {er}; {json.dumps(ba)} for {solves} solves with "
-         f"{accepted} accepted steps")
+         f"{accepted} accepted steps; pnp_hypotheses launches {pnp} for {bodies} PnP bodies")
+    _check(pnp == bodies, f"{what}: {pnp} pnp_hypotheses launches for {bodies} PnP bodies")
     _check(lk == lk_want > 0, f"{what}: {lk} lk_level_pass launches for {lk_want} passes")
     _check(bm == keyframes, f"{what}: {bm} stereo_bm_at launches for {keyframes} keyframes")
     _check(nms == keyframes, f"{what}: {nms} greedy_nms launches for {keyframes} keyframes")
@@ -1536,6 +1573,99 @@ def _ba_times(torch, schur, prob, lam, sys, carry, step_in, cam, bcfg) -> dict:
         out[kernel] = {"ms": k_ms, "device_ms": dev_us / 1e3, "plain_ms": p_ms,
                        "bound_ms": bound, "bound_by": bound_by, "library_ms": lib_ms}
     return out
+
+
+def _pnp_calls(torch, cfg, frames, dev) -> list:
+    """Phase 3f's inputs: ``(p3, uv, hyp_idx)`` of each PnP call (one per
+    accepted frame) of ``frames`` streamed eagerly by a fresh engine on
+    ``dev``."""
+    from stereo_vo_tpu_torch.engine.step import VOEngine
+    from stereo_vo_tpu_torch.frontend import pnp
+
+    calls, core = [], pnp.pnp_ransac_core
+
+    def recording(p3, uv, valid, cam, prev_pose, hyp_idx, fc):
+        calls.append((p3.contiguous().clone(), uv.contiguous().clone(),
+                      hyp_idx.contiguous().clone()))
+        return core(p3, uv, valid, cam, prev_pose, hyp_idx, fc)
+
+    engine = VOEngine(cfg, frames[0].left.shape, device=dev, graphs=False)
+    state, _ = engine.bootstrap(engine.init_state(), frames[0].left, frames[0].right)
+    pnp.pnp_ransac_core = recording
+    try:
+        for frame in frames[1:]:
+            state, _ = engine.step(state, frame.left, frame.right)
+    finally:
+        pnp.pnp_ransac_core = core
+    return calls
+
+
+def _pnp_hyp_check(torch, cfg, frames, dev) -> dict:
+    """Phase 3f: the PnP hypothesis kernel on the card against the plain
+    version on the CPU, on the inputs of every PnP call of ``frames``
+    (``hypothesis_hold`` with one-ulp nudged reruns of both), and before the
+    polish bitwise the host build; at the first call its time (CUDA events),
+    the plain version's on the card, the kernel's device time per launch
+    (``torch.profiler``) and its bound. Returns the kernel's record."""
+    import numpy as np
+
+    from stereo_vo_tpu_torch.eval.parity import hypothesis_hold
+    from stereo_vo_tpu_torch.frontend import pnp
+
+    cam, polish = cfg.camera, cfg.frontend.pnp_hyp_polish_iters
+    calls = _pnp_calls(torch, cfg, frames, dev)
+    _check(len(calls) > 0, "phase 4's world runs PnP")
+    total = {"calls": len(calls), "hypotheses": 0, "rounding_decided": 0, "max_diff": 0.0,
+             "max_spread": 0.0}
+
+    def nudged(x):
+        return torch.nextafter(x, torch.full_like(x, float("inf")))
+
+    for n, (p3, uv, idx) in enumerate(calls):
+        p3_c, uv_c, idx_c = p3.cpu(), uv.cpu(), idx.cpu()
+
+        def card(a, b, k):
+            out = pnp.pnp_hypotheses(a.to(dev), b.to(dev), idx, cam, k)
+            return tuple(t.cpu().numpy() for t in out)
+
+        def plain(a, b, k):
+            return tuple(t.numpy() for t in pnp.pnp_hypotheses_ref(a, b, idx_c, cam, k))
+
+        pre = card(p3_c, uv_c, 0)
+        host = tuple(t.numpy() for t in pnp.pnp_hypotheses_host(p3_c, uv_c, idx_c, cam, 0))
+        same = ((pre[0].view(np.int32) == host[0].view(np.int32))
+                | (np.isnan(pre[0]) & np.isnan(host[0])))
+        bitwise = bool(same.all()) and bool(np.array_equal(pre[1], host[1]))
+        p3_n, uv_n = nudged(p3_c), nudged(uv_c)
+        rep = hypothesis_hold(card(p3_c, uv_c, polish), plain(p3_c, uv_c, polish),
+                              card(p3_n, uv_n, polish), plain(p3_n, uv_n, polish),
+                              PNP_POSE_TOL, PNP_SPREAD_FACTOR)
+        _log(f"check pnp_hypotheses call {n} ({idx.shape[0]} samples of {p3.shape[0]} slots): "
+             f"against the plain version {json.dumps(rep)}; before the polish bitwise the host "
+             f"build: {bitwise}")
+        _check(bitwise, f"pnp_hypotheses call {n}: before the polish, the host build's bits")
+        _check(rep["failed"] == [], f"pnp_hypotheses call {n}: hypotheses {rep['failed']}")
+        _check(rep["rounding_decided"] <= PNP_DECIDED_MAX * rep["n"],
+               f"pnp_hypotheses call {n}: rounding decides {rep['rounding_decided']}")
+        total["hypotheses"] += rep["n"]
+        total["rounding_decided"] += rep["rounding_decided"]
+        total["max_diff"] = max(total["max_diff"], rep["max_diff"])
+        total["max_spread"] = max(total["max_spread"], rep["max_spread"])
+
+    p3, uv, idx = calls[0]
+    h = idx.shape[0]
+    call = lambda: pnp.pnp_hypotheses(p3, uv, idx, cam, polish)
+    k_ms = _time_ms(torch, call)
+    dev_us = _device_us(torch, call, "pnp_hyp_kernel", pnp.pnp_hypotheses)
+    p_ms = _time_ms(torch, lambda: pnp.pnp_hypotheses_ref(p3, uv, idx, cam, polish), samples=5,
+                    inner=2)
+    bound, bound_by = _bound_ms(h * PNP_BYTES_PER_HYP, h * (PNP_DLT_OPS + polish * PNP_POLISH_OPS))
+    _log(f"time pnp_hypotheses ({h} samples, {polish} polish iterations): call "
+         f"{k_ms * 1e3:.2f} us ({dev_us:.2f} us of it on the device), plain (torch ops on the "
+         f"card) {p_ms * 1e3:.1f} us, bound {bound * 1e3:.4f} us ({bound_by}); over "
+         f"{total['calls']} calls: {json.dumps(total)}")
+    return {"ms": k_ms, "device_ms": dev_us / 1e3, "plain_ms": p_ms, "bound_ms": bound,
+            "bound_by": bound_by, "library_ms": None, "max_abs_err": total["max_diff"], **total}
 
 
 def _detect_kernels(torch, cfg, img, dev) -> dict:
@@ -2504,7 +2634,7 @@ def main() -> int:
     # ---- 2. build
     _phase("2")
     _build_all(cuda_build, ("extract_regions", "lk_level", "stereo_bm_at", "greedy_nms",
-                            "ba_lm", "graph_cond"))
+                            "ba_lm", "pnp_hyp", "graph_cond"))
 
     # ---- 3. the region-extraction kernel against its plain version
     _phase("3")
@@ -2541,6 +2671,10 @@ def main() -> int:
     # ---- 3e. the bundle adjustment's kernels against their plain versions
     _phase("3e")
     ba_records = _ba_check(torch, cfg, world_frames, dev)
+
+    # ---- 3f. the PnP hypothesis kernel against its plain version
+    _phase("3f")
+    pnp_record = _pnp_hyp_check(torch, cfg, world_frames, dev)
 
     # ---- 4. the main path
     _phase("4")
@@ -2677,7 +2811,15 @@ def main() -> int:
         ("ba_step", "stereo_vo_tpu/backend/schur.py:596 back-substitution, :383 cost, :661 "
                     "body update (XLA fusions)"),
         ("ba_cost", "stereo_vo_tpu/backend/schur.py:383 _lm_major_cost (XLA fusions)"),
-    )]}), flush=True)
+    )] + [{
+        "name": "pnp_hypotheses",
+        "route": "cuda",
+        "source": "stereo_vo_tpu_torch/csrc/pnp_hyp.cu",
+        "replaces": "stereo_vo_tpu/frontend/pnp.py:346 one_hypothesis less the draw (XLA "
+                    "fusions, no Pallas)",
+        "launches": total("pnp_hypotheses"),
+        **pnp_record,
+    }]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",
         "kind": torch.cuda.get_device_name(0),

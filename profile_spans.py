@@ -14,7 +14,8 @@ tracing when it is on. From each traced window's records (``VOEngine.
 trace_records()``) it reads ``READINGS``, the per-layer numbers the spans
 serve, and beside them the records dropped, the share of keyframe steps
 whose ``track``, ``pnp``, ``kf_prep`` and ``ba`` spans lie inside their
-``step`` span, the ``step`` span's self time, the earliest a device span
+``step`` span, the ``pnp`` spans beside the PnP hypothesis kernel's
+launches (counted on the device), the ``step`` span's self time, the earliest a device span
 began before the host span that enqueued it, and the device's idle time by
 program host span. Last, one pass of the traced engine under
 ``torch.profiler``: each top-level stamp kernel's start in the profile,
@@ -279,6 +280,7 @@ def run_cell(name: str, seed: int, seconds: float, log) -> dict:
     from torch.profiler import ProfilerActivity, profile
 
     from stereo_vo_tpu_torch.engine.step import VOEngine, parse_summary
+    from stereo_vo_tpu_torch.frontend.pnp import pnp_hypotheses
     from vobench import manifest, metrics, world
     from vobench.drive import Driver
     from vobench.run import port_config
@@ -297,12 +299,15 @@ def run_cell(name: str, seed: int, seconds: float, log) -> dict:
     torch.cuda.synchronize(dev)
     turns = []
     for on in TURNS:
+        engines[on].flush_launches()
+        launches = pnp_hypotheses.launches
         gc.collect()
         gc.freeze()
         try:
             win = drivers[on].run(seconds)
         finally:
             gc.unfreeze()
+        engines[on].flush_launches()
         row = {"trace": on, **metrics.end_to_end(win), **latency_split(win)}
         if on:
             t0 = time.perf_counter()
@@ -310,6 +315,10 @@ def run_cell(name: str, seed: int, seconds: float, log) -> dict:
             row["drain_s"] = time.perf_counter() - t0
             row["readings"] = {k: fn(trace) for k, fn in READINGS.items()}
             row["spans"] = span_numbers(trace)
+            # the PnP hypothesis kernel's launches in the window, counted on
+            # the device, beside the PnP bodies the spans saw
+            row["pnp_spans_and_launches"] = [len(trace.named("pnp")),
+                                             pnp_hypotheses.launches - launches]
         turns.append(row)
         log(f"{name} trace={on}: " + json.dumps({k: v for k, v in row.items()
                                                  if k not in ("spans",)}))

@@ -79,6 +79,7 @@ import torch
 from torch.utils._python_dispatch import TorchDispatchMode
 
 from stereo_vo_tpu_torch.backend.schur import ba_build, ba_cost, ba_damp_reduce, ba_step
+from stereo_vo_tpu_torch.frontend.pnp import pnp_hypotheses
 from stereo_vo_tpu_torch.ops.lk import lk_level_pass
 from stereo_vo_tpu_torch.ops.regions import extract_regions
 from stereo_vo_tpu_torch.ops.shi_tomasi import greedy_nms
@@ -86,7 +87,7 @@ from stereo_vo_tpu_torch.ops.stereo_bm import stereo_bm_at
 
 # every hand kernel's wrapper, each with its ``launches`` count
 COUNTED = (lk_level_pass, stereo_bm_at, extract_regions, greedy_nms, ba_build, ba_damp_reduce,
-           ba_step, ba_cost)
+           ba_step, ba_cost, pnp_hypotheses)
 # the conditional bodies one program may hold (each has a slot of the
 # device counter for its runs)
 MAX_BODIES = 64

@@ -149,3 +149,50 @@ def divergence_hold(got: np.ndarray, want: np.ndarray, reruns: np.ndarray, gt_po
     if not (1 - ate_rtol) * min(ates) <= ate <= (1 + ate_rtol) * max(ates):
         fail.append(f"keyframe ATE {ate} m, reference runs {ates}")
     return report
+
+
+def pose_differences(a: np.ndarray, b: np.ndarray) -> np.ndarray:
+    """Per row of poses ``a``, ``b [H, 7]``: the largest |difference| over
+    the components finite in both, inf where one is finite and the other
+    not."""
+    a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+    fa, fb = np.isfinite(a), np.isfinite(b)
+    d = np.where(fa & fb, np.abs(a - b), 0.0).max(axis=1)
+    return np.where((fa != fb).any(axis=1), np.inf, d)
+
+
+def hypothesis_hold(got, want, got_nudged, want_nudged, tol: float,
+                    spread_factor: float) -> dict:
+    """PnP hypotheses ``got`` held to ``want``, each ``(pose [H, 7], ok
+    [H])`` from the same samples, with each side's rerun on inputs nudged by
+    one ulp (``*_nudged``) measuring what float32 rounding alone moves.
+
+    Scoring gives a hypothesis that is not ok no inliers, so only an ok
+    hypothesis's pose is compared. Its spread is the larger move under the
+    nudge of a side's pose where that side is ok, inf where a side's ok
+    flips. Where the
+    spread exceeds ``tol``, rounding decides the hypothesis (an
+    ill-conditioned sample: repeated or coplanar points, or outliers the
+    polish cannot fit) and it is counted but not compared. Every other
+    hypothesis holds when its ok flags are equal and, where ok, its pose
+    lies within ``tol + spread_factor * spread`` of ``want`` (non-finite in
+    the same components).
+
+    Returns the hypotheses' count, how many rounding decides, the failures'
+    indices, and the largest pose difference and spread among the compared
+    ok ones."""
+    (gp, gok), (wp, wok) = [(np.asarray(p), np.asarray(ok)) for p, ok in (got, want)]
+    (gp2, gok2), (wp2, wok2) = [(np.asarray(p), np.asarray(ok))
+                                for p, ok in (got_nudged, want_nudged)]
+    both = gok & wok
+    spread = np.maximum(np.where(gok, pose_differences(gp, gp2), 0.0),
+                        np.where(wok, pose_differences(wp, wp2), 0.0))
+    spread = np.where((gok != gok2) | (wok != wok2), np.inf, spread)
+    d = np.where(both, pose_differences(gp, wp), 0.0)
+    decided = spread > tol
+    failed = ~decided & ((gok != wok) | (d > tol + spread_factor * spread))
+    held = ~decided & both
+    return {"n": len(d), "rounding_decided": int(decided.sum()),
+            "failed": np.nonzero(failed)[0].tolist(),
+            "max_diff": float(d[held].max()) if held.any() else 0.0,
+            "max_spread": float(spread[held].max()) if held.any() else 0.0}

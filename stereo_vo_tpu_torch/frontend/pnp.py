@@ -17,10 +17,15 @@ them with ``sample_hypotheses``, which recomputes the reference's
 ``jax.random`` draw bit for bit from the frame index (``frontend/prng.py``),
 so both packages solve the same hypotheses; ``hyp_idx`` still lets a caller
 inject its own.
+
+On the card the minimal solver and its polish, for every hypothesis, are one
+hand kernel (``pnp_hypotheses``, ``csrc/pnp_hyp.cu``); ``pnp_hypotheses_ref``
+is its plain version, which the CPU runs.
 """
 
 from __future__ import annotations
 
+import ctypes
 from typing import NamedTuple, Optional
 
 import torch
@@ -212,6 +217,102 @@ def _all_finite(x: torch.Tensor) -> torch.Tensor:
     return torch.all(torch.isfinite(x), dim=-1)
 
 
+def pnp_hypotheses_ref(p3: torch.Tensor, uv: torch.Tensor, hyp_idx: torch.Tensor,
+                       cam: CameraInfo, polish_iters: int):
+    """The hypothesis stage as torch ops: for each minimal sample
+    ``hyp_idx [H, k]`` of ``p3 [F, 3]`` and ``uv [F, 2]``, the DLT pose on
+    its K-normalized rays, polished by ``polish_iters`` damped GN steps on
+    the sample; returns ``(hyp [H, 7], hyp_ok [H])``."""
+    xn = (uv - cam.principal_point(uv)) / cam.focal
+    p3_s, uv_s = p3[hyp_idx], uv[hyp_idx]
+    r, t, ok = _dlt_pose(p3_s, xn[hyp_idx])
+    hyp = make_pose(rotmat_to_quat(r), t)
+    weight = torch.ones(hyp_idx.shape, dtype=torch.bool, device=p3.device)
+    hyp = _gn_refine(hyp, p3_s, uv_s, weight, cam, polish_iters)
+    return hyp, ok & _all_finite(hyp)
+
+
+_hyp_fn = None
+
+
+def _hyp_kernel():
+    """``csrc/pnp_hyp.cu``'s launch, built, loaded and typed at first use."""
+    global _hyp_fn
+    if _hyp_fn is None:
+        from stereo_vo_tpu_torch import cuda_build
+
+        fn = cuda_build.load("pnp_hyp").svo_pnp_hypotheses
+        p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+        fn.argtypes = [p, p, p, i, i, f, f, f, i, p, p, p]
+        fn.restype = ctypes.c_int
+        _hyp_fn = fn
+    return _hyp_fn
+
+
+def pnp_hypotheses(p3: torch.Tensor, uv: torch.Tensor, hyp_idx: torch.Tensor,
+                   cam: CameraInfo, polish_iters: int):
+    """``pnp_hypotheses_ref``'s ``(hyp [H, 7], hyp_ok [H])`` for float32
+    ``p3 [F, 3]``, ``uv [F, 2]`` and int64 ``hyp_idx [H, 6]`` on one
+    device. CUDA tensors go through the kernel ``csrc/pnp_hyp.cu``: every
+    hypothesis in one launch with no host read (each adds one to
+    ``pnp_hypotheses.launches``; contiguous inputs, indices in ``[0, F)``).
+    CPU tensors go through the plain version. Anything else raises."""
+    dev = p3.device
+    f_cap = p3.shape[0]
+    for name, t, dtype, shape in (("p3", p3, torch.float32, (f_cap, 3)),
+                                  ("uv", uv, torch.float32, (f_cap, 2)),
+                                  ("hyp_idx", hyp_idx, torch.int64, (hyp_idx.shape[0], 6))):
+        if t.dtype != dtype or tuple(t.shape) != shape or t.device != dev:
+            raise ValueError(f"pnp_hypotheses: {name} must be {dtype} {shape} on {dev}, got "
+                             f"{t.dtype} {tuple(t.shape)} on {t.device}")
+    if dev.type == "cpu":
+        return pnp_hypotheses_ref(p3, uv, hyp_idx, cam, polish_iters)
+    if dev.type != "cuda":
+        raise ValueError(f"pnp_hypotheses: unsupported device {dev}")
+    if not (p3.is_contiguous() and uv.is_contiguous() and hyp_idx.is_contiguous()):
+        raise ValueError("pnp_hypotheses: p3, uv and hyp_idx must be contiguous")
+    n = hyp_idx.shape[0]
+    hyp = torch.empty(n, 7, dtype=torch.float32, device=dev)
+    ok = torch.empty(n, dtype=torch.bool, device=dev)
+    with torch.cuda.device(dev):
+        rc = _hyp_kernel()(p3.data_ptr(), uv.data_ptr(), hyp_idx.data_ptr(), n, f_cap,
+                           cam.focal, cam.cx, cam.cy, polish_iters, hyp.data_ptr(),
+                           ok.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"pnp_hypotheses kernel launch failed: CUDA error {rc}")
+    pnp_hypotheses.launches += 1
+    return hyp, ok
+
+
+pnp_hypotheses.launches = 0
+
+_host_fn = None
+
+
+def pnp_hypotheses_host(p3: torch.Tensor, uv: torch.Tensor, hyp_idx: torch.Tensor,
+                        cam: CameraInfo, polish_iters: int):
+    """The kernel's arithmetic on the host: ``csrc/pnp_hyp.cu`` built as
+    plain C++ (``cuda_build.load_host``), one hypothesis at a time, for CPU
+    tensors as ``pnp_hypotheses`` takes them. The tests hold it to the plain
+    version, and the card holds the kernel to it."""
+    global _host_fn
+    if _host_fn is None:
+        from stereo_vo_tpu_torch import cuda_build
+
+        fn = cuda_build.load_host("pnp_hyp").svo_pnp_hypotheses_host
+        p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+        fn.argtypes = [p, p, p, i, i, f, f, f, i, p, p]
+        fn.restype = None
+        _host_fn = fn
+    p3, uv, hyp_idx = p3.contiguous(), uv.contiguous(), hyp_idx.contiguous()
+    n = hyp_idx.shape[0]
+    hyp = torch.empty(n, 7, dtype=torch.float32)
+    ok = torch.empty(n, dtype=torch.bool)
+    _host_fn(p3.data_ptr(), uv.data_ptr(), hyp_idx.data_ptr(), n, p3.shape[0], cam.focal,
+             cam.cx, cam.cy, polish_iters, hyp.data_ptr(), ok.data_ptr())
+    return hyp, ok
+
+
 def pnp_ransac_core(
     p3: torch.Tensor,
     uv: torch.Tensor,
@@ -222,15 +323,9 @@ def pnp_ransac_core(
     cfg: FrontendConfig,
 ) -> PnPResult:
     """PnP-RANSAC from given minimal samples ``hyp_idx [n_hyp - 1, k]``."""
-    xn = (uv - cam.principal_point(uv)) / cam.focal
-
     # hypotheses 1..n_hyp-1: DLT on each minimal sample, polished on it
-    p3_s, uv_s = p3[hyp_idx], uv[hyp_idx]
-    r, t, ok = _dlt_pose(p3_s, xn[hyp_idx])
-    hyp = make_pose(rotmat_to_quat(r), t)
-    weight = torch.ones(hyp_idx.shape, dtype=torch.bool, device=p3.device)
-    hyp = _gn_refine(hyp, p3_s, uv_s, weight, cam, cfg.pnp_hyp_polish_iters)
-    hyp_ok = ok & _all_finite(hyp)
+    hyp, hyp_ok = pnp_hypotheses(p3.contiguous(), uv.contiguous(), hyp_idx.contiguous(), cam,
+                                 cfg.pnp_hyp_polish_iters)
 
     # hypothesis 0: warm start, trimmed GN on all points
     warm = prev_pose

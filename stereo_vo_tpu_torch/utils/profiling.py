@@ -577,7 +577,7 @@ KEYFRAME_TIMED_FROM = 2
 # the wrapper that counts each one's launches: (module, function)
 PORT_KERNELS = ("lk_level_kernel", "stereo_bm_at_kernel", "extract_regions_kernel",
                 "greedy_nms_kernel", "ba_build_kernel", "ba_damp_reduce_kernel",
-                "ba_step_kernel", "ba_cost_kernel")
+                "ba_step_kernel", "ba_cost_kernel", "pnp_hyp_kernel")
 PORT_WRAPPERS = {"lk_level_kernel": ("ops.lk", "lk_level_pass"),
                  "stereo_bm_at_kernel": ("ops.stereo_bm", "stereo_bm_at"),
                  "extract_regions_kernel": ("ops.regions", "extract_regions"),
@@ -585,7 +585,8 @@ PORT_WRAPPERS = {"lk_level_kernel": ("ops.lk", "lk_level_pass"),
                  "ba_build_kernel": ("backend.schur", "ba_build"),
                  "ba_damp_reduce_kernel": ("backend.schur", "ba_damp_reduce"),
                  "ba_step_kernel": ("backend.schur", "ba_step"),
-                 "ba_cost_kernel": ("backend.schur", "ba_cost")}
+                 "ba_cost_kernel": ("backend.schur", "ba_cost"),
+                 "pnp_hyp_kernel": ("frontend.pnp", "pnp_hypotheses")}
 # the profiler ranges this module puts around each profiled step (the step
 # call and the summary fetch) and around each profiled replay_chunk call, and
 # the one replay_chunk puts around its frames (engine/step.py CHUNK_RANGE)

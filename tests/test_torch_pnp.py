@@ -11,20 +11,30 @@ translation components, translations of a few metres) and identical inlier
 masks. Both packages polish the winning hypothesis with the same GN
 iterations; what differs is f32 rounding in the 12x12 null-vector solve and
 the 6x6 LAPACK solves.
+
+The hypothesis stage (``pnp_hypotheses``) on six kinds of minimal sample:
+its plain version against the JAX package's ``one_hypothesis``, the
+kernel's source built for the host (``pnp_hypotheses_host``) against the
+plain version, and, marked ``cuda``, the kernel on the card against both
+(``python -m pytest tests/test_torch_pnp.py -m cuda --noconftest -q``; JAX
+is imported inside the CPU tests only). ``eval.parity.hypothesis_hold``
+holds each hypothesis: ok flags equal, and an ok pose within ``POSE_TOL``
+plus ``SPREAD_FACTOR`` times its own rounding spread, read from one-ulp
+nudged reruns of both sides; where that spread exceeds ``POSE_TOL`` rounding
+decides the sample, which is counted and not compared.
 """
 
-import jax
-import jax.numpy as jnp
+import dataclasses
+import functools
+
 import numpy as np
 import pytest
 import torch
 
-from stereo_vo_tpu.core.camera import CameraInfo as JCameraInfo
-from stereo_vo_tpu.core.config import FrontendConfig as JFrontendConfig
-from stereo_vo_tpu.core.geometry import quat_to_rotmat
-from stereo_vo_tpu.frontend import pnp as jpnp
-
+from stereo_vo_tpu_torch.core.camera import CameraInfo
 from stereo_vo_tpu_torch.core.config import FrontendConfig
+from stereo_vo_tpu_torch.core.geometry import quat_to_rotmat as port_quat_to_rotmat
+from stereo_vo_tpu_torch.eval.parity import hypothesis_hold
 from stereo_vo_tpu_torch.frontend import pnp as tpnp
 from stereo_vo_tpu_torch.frontend import prng
 
@@ -33,17 +43,49 @@ from torch_port_helpers import (
     assert_equal,
     jax_pnp_indices,
     jax_pnp_indices_batch,
-    port_camera,
     to_jax,
     to_torch,
 )
 
-JCAM = JCameraInfo(focal=718.856, cx=607.1928, cy=185.2157, baseline=0.537)
+TCAM = CameraInfo(focal=718.856, cx=607.1928, cy=185.2157, baseline=0.537)
 POSE_TOL = 1e-4
-JCFG = JFrontendConfig()
-_jax_pnp = jax.jit(lambda p3, uv, valid, prev, seed: jpnp.pnp_ransac(
-    p3, uv, valid, JCAM, prev, seed, JCFG))
-_jax_dlt = jax.jit(jax.vmap(jpnp._dlt_pose))
+TCFG = FrontendConfig()
+
+
+@functools.lru_cache(maxsize=None)
+def _jax():
+    """The JAX package's pieces these tests hold the port to, imported at
+    first use: the ``cuda`` tests run on a machine without JAX."""
+    import types
+
+    import jax
+    import jax.numpy as jnp
+
+    from stereo_vo_tpu.core.camera import CameraInfo as JCameraInfo
+    from stereo_vo_tpu.core.config import FrontendConfig as JFrontendConfig
+    from stereo_vo_tpu.core.geometry import make_pose, quat_to_rotmat, rotmat_to_quat
+    from stereo_vo_tpu.frontend import pnp as jpnp
+
+    jcam = JCameraInfo(**dataclasses.asdict(TCAM))
+    jcfg = JFrontendConfig()
+
+    def one_hypothesis(p3, xn, uv, polish_iters):
+        """``pnp_ransac``'s ``one_hypothesis`` less the draw."""
+        r, t, ok = jpnp._dlt_pose(p3, xn)
+        pose = make_pose(rotmat_to_quat(r), t.astype(p3.dtype))
+        pose = jpnp._gn_refine(pose, p3, uv, jnp.ones(p3.shape[0], bool), jcam, polish_iters)
+        return pose, ok & jnp.all(jnp.isfinite(pose))
+
+    @functools.partial(jax.jit, static_argnums=3)
+    def hypotheses(p3, uv, idx, polish_iters):
+        xn = (uv - jnp.array([jcam.cx, jcam.cy], uv.dtype)) / jnp.asarray(jcam.focal, uv.dtype)
+        return jax.vmap(lambda i: one_hypothesis(p3[i], xn[i], uv[i], polish_iters))(idx)
+
+    return types.SimpleNamespace(
+        jax=jax, jnp=jnp, jpnp=jpnp, quat_to_rotmat=quat_to_rotmat, JCFG=jcfg,
+        pnp=jax.jit(lambda p3, uv, valid, prev, seed: jpnp.pnp_ransac(
+            p3, uv, valid, jcam, prev, seed, jcfg)),
+        dlt=jax.jit(jax.vmap(jpnp._dlt_pose)), hypotheses=hypotheses)
 
 
 def _problem(rng, n=200, outlier_frac=0.2, noise_px=0.5):
@@ -55,9 +97,9 @@ def _problem(rng, n=200, outlier_frac=0.2, noise_px=0.5):
     pose = np.concatenate([q, t]).astype(np.float32)
     p_cam = np.stack([rng.uniform(-12, 12, n), rng.uniform(-3, 3, n),
                       rng.uniform(5, 40, n)], 1)
-    r = np.asarray(quat_to_rotmat(to_jax(q)))
+    r = np.asarray(_jax().quat_to_rotmat(to_jax(q)))
     p_world = (p_cam - t) @ r                           # R^T (p_cam - t)
-    uv = p_cam[:, :2] / p_cam[:, 2:3] * JCAM.focal + [JCAM.cx, JCAM.cy]
+    uv = p_cam[:, :2] / p_cam[:, 2:3] * TCAM.focal + [TCAM.cx, TCAM.cy]
     uv += rng.normal(size=uv.shape) * noise_px
     out = rng.random(n) < outlier_frac
     uv[out] += rng.uniform(-80, 80, size=(out.sum(), 2))
@@ -71,10 +113,10 @@ def test_pnp_matches_reference_with_injected_samples(rng, seed):
     # warm start: the previous frame's pose, a little off
     prev = pose_true.copy()
     prev[4:] += [0.3, -0.05, 0.6]
-    want = _jax_pnp(to_jax(p3), to_jax(uv), to_jax(valid), to_jax(prev), np.uint32(seed))
-    idx = jax_pnp_indices(valid, seed, JCFG.pnp_iterations, JCFG.pnp_sample_size)
+    want = _jax().pnp(to_jax(p3), to_jax(uv), to_jax(valid), to_jax(prev), np.uint32(seed))
+    idx = jax_pnp_indices(valid, seed, TCFG.pnp_iterations, TCFG.pnp_sample_size)
     got = tpnp.pnp_ransac_core(to_torch(p3), to_torch(uv), to_torch(valid),
-                               port_camera(JCAM), to_torch(prev), to_torch(idx),
+                               TCAM, to_torch(prev), to_torch(idx),
                                FrontendConfig())
     assert_equal(got.inliers, want.inliers, "inliers")
     assert_equal(got.num_inliers, want.num_inliers, "num_inliers")
@@ -91,8 +133,8 @@ def test_dlt_hypotheses_match_reference(rng):
     (the polish and LO rounds downstream remove them, see the test above)."""
     p3, uv, valid, _ = _problem(rng, outlier_frac=0.0, noise_px=0.3)
     idx = jax_pnp_indices(valid, 3, 32, 6)
-    xn = (uv - [JCAM.cx, JCAM.cy]) / JCAM.focal
-    want_r, want_t, want_ok = _jax_dlt(to_jax(p3[idx]), to_jax(xn[idx]))
+    xn = (uv - [TCAM.cx, TCAM.cy]) / TCAM.focal
+    want_r, want_t, want_ok = _jax().dlt(to_jax(p3[idx]), to_jax(xn[idx]))
     got_r, got_t, got_ok = tpnp._dlt_pose(to_torch(p3[idx]), to_torch(xn[idx].astype(np.float32)))
     assert_equal(got_ok, want_ok)
     assert_close(got_r, want_r, atol=1e-3, what="R")
@@ -103,6 +145,7 @@ def test_dlt_hypotheses_match_reference(rng):
 def test_prng_split_and_bits_match_jax(seed):
     """``prng.prng_key``, ``split`` and ``random_bits`` against ``jax.random``
     bitwise, at both ends of the uint32 seed range."""
+    jax, jnp = _jax().jax, _jax().jnp
     key = jax.random.PRNGKey(np.uint32(seed))
     tkey = prng.prng_key(seed)
     assert_equal(tkey, np.asarray(key).astype(np.int64), "key")
@@ -120,6 +163,7 @@ def test_gumbel_matches_jax_on_every_uniform():
     each inner and outer argument and on every ``1 / n`` of ``log(p)``;
     ``torch.log`` does not (one ulp off on about one input in seven). And
     ``prng.gumbel`` equals ``jax.random.gumbel`` on seeded keys."""
+    jax, jnp = _jax().jax, _jax().jnp
     mant = np.arange(2**23, dtype=np.int32)
     u = (mant | np.int32(0x3F800000)).view(np.float32) - np.float32(1.0)
     u = np.maximum(u + prng.FLOAT32_TINY, prng.FLOAT32_TINY).astype(np.float32)
@@ -190,7 +234,7 @@ def test_sample_hypotheses_matches_jax_draw(share, f_cap):
         row[rng.choice(f_cap, n_valid, replace=False)] = True
     seeds = np.concatenate([[0, 1, 2**31, 2**32 - 1],
                             rng.integers(0, 2**32, N_SEEDS - 4)]).astype(np.uint32)
-    n_hyp, k = JCFG.pnp_iterations, JCFG.pnp_sample_size
+    n_hyp, k = TCFG.pnp_iterations, TCFG.pnp_sample_size
     want = jax_pnp_indices_batch(valids, seeds, n_hyp, k)
     for i in range(N_SEEDS):
         got = tpnp.sample_hypotheses(torch.from_numpy(valids[i]), n_hyp - 1, k, int(seeds[i]))
@@ -223,3 +267,232 @@ def test_seeded_sampling_draws_distinct_valid_slots():
     few[:3] = True                                   # fewer valid slots than k
     c = tpnp.sample_hypotheses(few, 5, 6, seed=0)
     assert all(len(set(row.tolist())) == 6 for row in c)
+
+
+# the hypothesis stage (``pnp_hypotheses``): its plain version against the
+# JAX package's one_hypothesis, and the kernel's arithmetic against the plain
+# version. Rounding decides ill-conditioned samples; ``hypothesis_hold``
+# measures that with one-ulp nudged reruns of both sides and compares the
+# rest within POSE_TOL plus SPREAD_FACTOR times their own rounding spread
+# (one nudge samples it once; two independent roundings part by a few such
+# samples).
+SPREAD_FACTOR = 4.0
+F_CAP = 448
+N_SAMPLES = 99
+SAMPLE_KINDS = ("drawn", "inliers", "repeated", "coplanar", "few_valid", "not_ok")
+
+
+def _scene(rng, outlier_frac=0.2, noise_px=0.5, plane=False):
+    """``F_CAP`` world points seen by a camera at a random pose, as
+    ``_problem`` makes them (without JAX), or on one plane in front of it:
+    ``(p3, uv, valid, outlier)`` in float32 / bool numpy."""
+    yaw = rng.uniform(-0.2, 0.2)
+    q = np.array([np.cos(yaw / 2), 0.0, np.sin(yaw / 2), 0.0], np.float32)
+    t = rng.normal(size=3) * [0.5, 0.1, 1.0]
+    x, y = rng.uniform(-12, 12, F_CAP), rng.uniform(-3, 3, F_CAP)
+    z = 20.0 + 0.3 * x - 0.5 * y if plane else rng.uniform(5, 40, F_CAP)
+    p_cam = np.stack([x, y, z], 1)
+    r = port_quat_to_rotmat(torch.from_numpy(q)).double().numpy()
+    p_world = (p_cam - t) @ r
+    uv = p_cam[:, :2] / p_cam[:, 2:3] * TCAM.focal + [TCAM.cx, TCAM.cy]
+    uv += rng.normal(size=uv.shape) * noise_px
+    outlier = rng.random(F_CAP) < outlier_frac
+    uv[outlier] += rng.uniform(-80, 80, size=(outlier.sum(), 2))
+    valid = rng.random(F_CAP) < 0.9
+    return p_world.astype(np.float32), uv.astype(np.float32), valid, outlier
+
+
+def _samples(kind, seed):
+    """``(p3, uv, hyp_idx)`` torch tensors on the CPU: ``N_SAMPLES`` minimal
+    samples of one kind. ``drawn``: the draw of a frame (``sample_hypotheses``,
+    bitwise the reference's) on a scene with 20% outliers; ``inliers``: six
+    distinct valid inliers each; ``repeated``: one point taken twice;
+    ``coplanar``: six points of one plane; ``few_valid``: the draw on a mask
+    with 3 valid slots, which fills the sample with the lowest invalid slots
+    (zeros, as a frame's unused slots); ``not_ok``: one point six times."""
+    rng = np.random.default_rng(seed)
+    p3, uv, valid, outlier = _scene(rng, plane=kind == "coplanar",
+                                    outlier_frac=0.0 if kind == "inliers" else 0.2)
+    pick = np.nonzero(valid & ~outlier)[0]
+    if kind in ("drawn", "few_valid"):
+        if kind == "few_valid":
+            valid = np.zeros(F_CAP, bool)
+            valid[rng.choice(F_CAP, 3, replace=False)] = True
+            p3[~valid], uv[~valid] = 0.0, 0.0
+        idx = tpnp.sample_hypotheses(torch.from_numpy(valid), N_SAMPLES, 6, seed).numpy()
+    elif kind == "not_ok":
+        idx = np.repeat(rng.choice(pick, (N_SAMPLES, 1)), 6, axis=1)
+    else:
+        idx = np.stack([rng.choice(pick, 6, replace=False) for _ in range(N_SAMPLES)])
+        if kind == "repeated":
+            idx[:, 1] = idx[:, 0]
+    return torch.from_numpy(p3), torch.from_numpy(uv), torch.from_numpy(idx.astype(np.int64))
+
+
+def _same_bits(a, b) -> bool:
+    """Equal bits, or NaN in both (whatever its sign and payload)."""
+    return bool(((a.view(torch.int32) == b.view(torch.int32))
+                 | (torch.isnan(a) & torch.isnan(b))).all())
+
+
+def _nudged(*xs):
+    return tuple(torch.nextafter(x, torch.full_like(x, float("inf"))) for x in xs)
+
+
+def _hold(kind, got, want, got_nudged, want_nudged):
+    """``hypothesis_hold`` of two sides, with what each kind must show."""
+    report = hypothesis_hold(got, want, got_nudged, want_nudged, POSE_TOL, SPREAD_FACTOR)
+    assert report["failed"] == [], (kind, report)
+    ok = np.asarray(want[1])
+    if kind == "inliers":
+        assert report["rounding_decided"] <= N_SAMPLES // 10 and ok.all(), (kind, report)
+    elif kind == "drawn":
+        assert report["rounding_decided"] <= 0.6 * N_SAMPLES and ok.all(), (kind, report)
+    elif kind in ("not_ok", "few_valid"):
+        assert not ok.any() and not np.asarray(got[1]).any(), (kind, report)
+    return report
+
+
+@pytest.mark.parametrize("kind", SAMPLE_KINDS)
+def test_pnp_hypotheses_ref_matches_reference(kind):
+    """``pnp_hypotheses_ref`` (the plain version, moved unchanged out of
+    ``pnp_ransac_core``) against the JAX package's ``one_hypothesis`` less the
+    draw, vmapped over the same samples, polish included."""
+    p3, uv, idx = _samples(kind, SAMPLE_KINDS.index(kind) + 11)
+    polish = TCFG.pnp_hyp_polish_iters
+
+    def run_ref(a, b):
+        return tuple(t.numpy() for t in tpnp.pnp_hypotheses_ref(a, b, idx, TCAM, polish))
+
+    def run_jax(a, b):
+        pose, ok = _jax().hypotheses(to_jax(a), to_jax(b), to_jax(idx.numpy()), polish)
+        return np.asarray(pose), np.asarray(ok)
+
+    nudged = _nudged(p3, uv)
+    _hold(kind, run_ref(p3, uv), run_jax(p3, uv), run_ref(*nudged), run_jax(*nudged))
+
+
+@pytest.mark.parametrize("kind", SAMPLE_KINDS)
+def test_pnp_hypotheses_kernel_arithmetic_matches_ref(kind):
+    """The kernel's source built for the host (``pnp_hypotheses_host``)
+    against the plain version: bitwise before the polish (the DLT, its
+    null vector, the polar fix and the quaternion round as torch's CPU ops
+    round them), and through the polish by ``hypothesis_hold`` (its 6x6 LU
+    solve sums in LAPACK's blocked order there, and sin and cos are libm's)."""
+    p3, uv, idx = _samples(kind, SAMPLE_KINDS.index(kind) + 11)
+    want = tpnp.pnp_hypotheses_ref(p3, uv, idx, TCAM, 0)
+    got = tpnp.pnp_hypotheses_host(p3, uv, idx, TCAM, 0)
+    assert _same_bits(got[0], want[0]), f"{kind}: pose bits"
+    assert_equal(got[1], want[1], f"{kind}: ok")
+    polish = TCFG.pnp_hyp_polish_iters
+    nudged = _nudged(p3, uv)
+    runs = [tuple(t.numpy() for t in fn(a, b, idx, TCAM, polish))
+            for a, b in ((p3, uv), nudged)
+            for fn in (tpnp.pnp_hypotheses_host, tpnp.pnp_hypotheses_ref)]
+    _hold(kind, runs[0], runs[1], runs[2], runs[3])
+
+
+def test_pnp_hypotheses_refuses_what_it_cannot_take():
+    """Six points a sample, float32 points and pixels, int64 indices, one
+    device: anything else raises on the CPU as on the card."""
+    p3, uv, idx = _samples("inliers", 3)
+    for bad in (dict(hyp_idx=idx[:, :5]), dict(hyp_idx=torch.cat([idx, idx[:, :1]], 1)),
+                dict(hyp_idx=idx.to(torch.int32)), dict(p3=p3.double()),
+                dict(uv=uv.to(torch.float16)), dict(uv=uv[:-1]), dict(p3=p3[:, :2])):
+        args = dict(p3=p3, uv=uv, hyp_idx=idx, cam=TCAM, polish_iters=2)
+        args.update(bad)
+        with pytest.raises(ValueError, match="pnp_hypotheses"):
+            tpnp.pnp_hypotheses(**args)
+
+
+def _card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    return torch.device("cuda")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", SAMPLE_KINDS)
+def test_cuda_pnp_hypotheses_match_plain(kind):
+    """The kernel (``csrc/pnp_hyp.cu``) on the card: bitwise its own
+    arithmetic built for the host before the polish (NaN as NaN), and
+    through the polish held by ``hypothesis_hold`` to the plain version on
+    the CPU and to the host build (the card's sin and cos round otherwise
+    than libm's and torch's, and the plain version's LU sums in LAPACK's
+    blocked order)."""
+    dev = _card()
+    p3, uv, idx = _samples(kind, SAMPLE_KINDS.index(kind) + 11)
+
+    def card(a, b, polish):
+        out = tpnp.pnp_hypotheses(a.to(dev), b.to(dev), idx.to(dev), TCAM, polish)
+        return tuple(t.cpu() for t in out)
+
+    pre, host = card(p3, uv, 0), tpnp.pnp_hypotheses_host(p3, uv, idx, TCAM, 0)
+    assert _same_bits(pre[0], host[0]), f"{kind}: pose bits before the polish"
+    assert_equal(pre[1], host[1], f"{kind}: ok before the polish")
+    polish = TCFG.pnp_hyp_polish_iters
+    nudged = _nudged(p3, uv)
+    for plain in (tpnp.pnp_hypotheses_ref, tpnp.pnp_hypotheses_host):
+        runs = [tuple(t.numpy() for t in fn(a, b, polish))
+                for a, b in ((p3, uv), nudged)
+                for fn in (card, lambda a, b, k: plain(a, b, idx, TCAM, k))]
+        _hold(kind, runs[0], runs[1], runs[2], runs[3])
+
+
+@pytest.mark.cuda
+def test_cuda_pnp_ransac_launches_once_replays_bitwise_reads_nothing():
+    """``pnp_ransac`` on the card: one kernel launch a call, eager and in a
+    replayed CUDA graph (counted on the device), the replay bitwise the
+    eager call, no host read (``test_torch_sync_free.HostReads``); and the
+    wrapper refuses a sample size other than 6, other dtypes and
+    non-contiguous inputs. The graph holds the call in a ``cond`` body, as
+    the step graph does: every program captures its bodies on one stream,
+    where cuSOLVER's scratch for the PnP's 6x6 solves is taken once
+    (``engine/graphs.py::_body_stream``)."""
+    from stereo_vo_tpu_torch.core.consts import const
+    from stereo_vo_tpu_torch.engine.graphs import Program, cond
+    from test_torch_sync_free import HostReads
+
+    dev = _card()
+    p3, uv, valid, _ = _scene(np.random.default_rng(23))
+    prev = torch.tensor([1, 0, 0, 0, 0.2, -0.05, 0.4], device=dev)
+    args = (torch.from_numpy(p3).to(dev), torch.from_numpy(uv).to(dev),
+            torch.from_numpy(valid).to(dev), prev, torch.tensor(17, device=dev))
+
+    def call(inputs):
+        return tpnp.pnp_ransac(inputs[0], inputs[1], inputs[2], TCAM, inputs[3], inputs[4], TCFG)
+
+    call(args)
+    before = tpnp.pnp_hypotheses.launches
+    with HostReads() as counter:
+        eager = call(args)
+    assert counter.reads == []
+    assert tpnp.pnp_hypotheses.launches == before + 1
+    def skip(inputs):
+        return tpnp.PnPResult(pose=inputs[3], inliers=torch.zeros_like(inputs[2]),
+                              num_inliers=const(0, torch.int64, dev),
+                              ok=const(False, torch.bool, dev))
+
+    run = const(True, torch.bool, dev)
+    program = Program("pnp", lambda carry, inputs: ((), cond(run, call, skip, (inputs,))))
+    program((), args)
+    program.flush_launches()
+    before = tpnp.pnp_hypotheses.launches
+    _, replayed = program((), args)
+    program.flush_launches()
+    assert program.replays == 1 and tpnp.pnp_hypotheses.launches == before + 1
+    for name, got, want in zip(tpnp.PnPResult._fields, replayed, eager):
+        got, want = got.reshape(-1).view(torch.uint8), want.reshape(-1).view(torch.uint8)
+        assert torch.equal(got, want), name
+    assert bool(eager.ok) and int(eager.num_inliers) > 0.5 * valid.sum()
+
+    idx = tpnp.sample_hypotheses(args[2], 99, 6, 17)
+    for bad, match in ((dict(hyp_idx=idx[:, :5].contiguous()), "hyp_idx"),
+                       (dict(p3=args[0].double()), "p3"),
+                       (dict(hyp_idx=idx.to(torch.int32)), "hyp_idx"),
+                       (dict(p3=args[0].t().contiguous().t()), "contiguous"),
+                       (dict(hyp_idx=torch.cat([idx, idx], 1)[:, ::2]), "contiguous")):
+        kw = dict(p3=args[0], uv=args[1], hyp_idx=idx, cam=TCAM, polish_iters=2)
+        kw.update(bad)
+        with pytest.raises(ValueError, match=match):
+            tpnp.pnp_hypotheses(**kw)
